@@ -15,7 +15,12 @@ Port of `av1dec_tpu.ops.kernels.cdef`:
   the hand-written kernel (`csrc/cdef_filter.cu`), a CPU tensor to
   `_filter_plane`; nothing else is accepted.
 - `_cdef_core`: variance gating, damping shifts, per-pixel maps and the
-  three plane filters of one frame.
+  three plane filters of one frame, in plain torch.
+- `cdef_frame`: the public CDEF of one frame (the function of
+  `_cdef_core`).  A CUDA frame goes to the hand-written kernel
+  (`csrc/cdef_frame.cu`: one launch for every plane, direction search
+  and gating inside, per-8x8-unit strengths in place of per-pixel
+  maps), a CPU frame to `_cdef_core`; nothing else is accepted.
 
 All pixel math is int32, bit-exact with the JAX package.
 """
@@ -43,8 +48,10 @@ _DIV = np.asarray(DIV_TABLE, np.int64).astype(np.int32)
 # 4:2:2 chroma direction remap [SPEC §7.15.3]
 _UV_DIR_422 = np.array([7, 0, 2, 4, 5, 6, 6, 6], np.int32)
 
-# launches of the CUDA filter kernel in this process
+# launches of the CUDA per-plane filter kernel in this process
 launches = 0
+# launches of the CUDA frame kernel in this process
+frame_launches = 0
 
 
 def _first_argmax(cost):
@@ -198,7 +205,7 @@ def _check(name, t, device, shape):
     if t.device != device or t.dtype != torch.int32 or \
             tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(
-            f"filter_plane: {name} must be a contiguous int32 {shape} "
+            f"CDEF: {name} must be a contiguous int32 {shape} "
             f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}")
 
@@ -232,7 +239,7 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
 
     H, W = luma.shape
     apply_y = (pri_adj > 0) | (y_sec_u > 0)
-    out = [filter_plane(
+    out = [_filter_plane(
         luma,
         expand(pri_adj, 8, 8, H, W),
         expand(y_sec_u, 8, 8, H, W),
@@ -256,8 +263,67 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
                 expand(shift_for(uv_sec_u, damping_y - 1), ry, rx, Hc, Wc),
                 expand(apply_uv, ry, rx, Hc, Wc))
         for pl in (1, 2):
-            out.append(filter_plane(planes[pl], *args, coeff_shift))
+            out.append(_filter_plane(planes[pl], *args, coeff_shift))
     return tuple(out)
+
+
+def _rows(p):
+    """`p` as int32 rows that the frame kernel copies 16 bytes at a
+    time: unit column stride, base and row pitch multiples of 16 bytes.
+    The frame buffer's plane views and the deblocked planes are so, and
+    are not copied."""
+    p = p.to(torch.int32)
+    if p.stride(1) != 1 or p.stride(0) < p.shape[1] or p.stride(0) % 4 \
+            or p.data_ptr() % 16:
+        p = p.clone(memory_format=torch.contiguous_format)
+    return p
+
+
+def cdef_frame(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd, damping,
+               subx, suby):
+    """CDEF of one frame (the function of `_cdef_core`, same arguments).
+
+    A CUDA frame runs the hand-written frame kernel, one launch for every
+    plane, and counts it in `frame_launches`; a CPU frame runs
+    `_cdef_core`.  The luma plane is [H, W] with H, W multiples of 8, the
+    chroma planes [H >> suby, W >> subx]; the four strengths are
+    [H/8, W/8] int32 on the planes' device.  Returns new int32 planes."""
+    global frame_launches
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd,
+                          damping, subx, suby)
+    if dev.type != "cuda":
+        raise ValueError(f"cdef_frame: unsupported device {dev}")
+    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
+    lib = load_kernel("cdef_frame")
+    H, W = planes[0].shape
+    if H % 8 or W % 8 or len(planes) not in (1, 3):
+        raise ValueError(f"cdef_frame: needs 1 or 3 planes and a luma "
+                         f"plane of multiples of 8, got {len(planes)} "
+                         f"planes, luma {H}x{W}")
+    src = [_rows(p) for p in planes]
+    for p in src[1:]:
+        if p.device != dev or tuple(p.shape) != (H >> suby, W >> subx):
+            raise ValueError(f"cdef_frame: chroma must be "
+                             f"{(H >> suby, W >> subx)} on {dev}, got "
+                             f"{tuple(p.shape)} on {p.device}")
+    gates = (y_pri_u, y_sec_u, uv_pri_u, uv_sec_u)
+    for name, g in zip(("y_pri", "y_sec", "uv_pri", "uv_sec"), gates):
+        _check(name, g, dev, (H // 8, W // 8))
+    outs = [torch.empty(p.shape, dtype=torch.int32, device=dev)
+            for p in src]
+    absent = [None] * (3 - len(src))  # U and V of a mono frame
+    err = lib.cdef_frame(
+        *[p.data_ptr() for p in src], *absent,
+        *[p.stride(0) for p in src], *[0] * len(absent),
+        *[o.data_ptr() for o in outs], *absent,
+        *[g.data_ptr() for g in gates], H, W, len(src), bd, damping, subx,
+        suby, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cdef_frame launch failed: CUDA error {err}")
+    frame_launches += 1
+    return tuple(outs)
 
 
 def compute_gates(seq, hdr, plans, n_planes, bd):

@@ -27,6 +27,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "cdef_filter": ("cdef_filter_plane",
                     [_P] * 9 + [_I, _I, _I, _P]),
+    "cdef_frame": ("cdef_frame",
+                   [_P] * 3 + [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P]),
 }
 
 _loaded = {}

@@ -78,7 +78,7 @@ def _postfilter_chain(frame, base, dbl_maps, gates, sr_args, lr_args, cfg):
     pre = list(planes) if need_pre else None
     if has_cdef:
         y_pri, y_sec, uv_pri, uv_sec = gates
-        planes = list(cdef_dev._cdef_core(
+        planes = list(cdef_dev.cdef_frame(
             tuple(planes), y_pri, y_sec, uv_pri, uv_sec, bd, damping,
             subx_c, suby_c))
     if has_sr:

@@ -33,7 +33,7 @@ PARTIAL = [
       "_cfl_adjust", "_apply_bucket", "run_wavefront"}),
     ("ops/kernels/cdef.py", "ops/kernels/cdef.py",
      {"_PROJ_FLAT", "_DIV", "_UV_DIR_422", "_directions", "_ilog2",
-      "_constrain", "_filter_plane", "_cdef_core"}),
+      "_constrain", "_filter_plane", "_cdef_core", "cdef_frame"}),
     ("pipeline/device_recon.py", "pipeline/device_recon.py",
      {"_superres_dev", "_postfilter_chain", "DeviceRecon", "prep_batch",
       "dispatch_batch"}),

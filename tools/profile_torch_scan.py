@@ -1,6 +1,6 @@
 """Where the device time of av1dec_tpu_torch's main path goes, on one card.
 
-    python3 tools/profile_torch_scan.py [--frames 4]
+    python3 tools/profile_torch_scan.py [--frames 4] [--stages scan,postfilter]
 
 Decodes the first batch (`--frames`) of the committed 1080p all-intra
 stream as `decode_stream_batched` does, then, for the wavefront scan and
@@ -13,7 +13,8 @@ for the postfilter of that batch:
   busy share of the unprofiled wall time; the five kernels with the most
   device time.
 
-Prints one JSON object per stage and the card's name and power limit.
+Prints one JSON object per stage named in `--stages` (both by default)
+and the card's name and power limit.
 Needs a CUDA card; exits non-zero without one.
 """
 import json
@@ -81,7 +82,9 @@ def main():
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--stages", default="scan,postfilter")
     args = ap.parse_args()
+    stages = args.stages.split(",")
     if not torch.cuda.is_available():
         print("profile_torch_scan: no CUDA device", file=sys.stderr)
         return 1
@@ -108,9 +111,11 @@ def main():
     extra = {"frames": len(drs), "windows": int(ws.shape[0]),
              "window_buckets": int((wc > 0).sum())}
     frame = scan_batch(inputs)
-    _profile("scan", lambda: scan_batch(inputs), extra)
-    _profile("postfilter", lambda: postfilter_batch(drs, inputs, frame),
-             {"frames": len(drs)})
+    if "scan" in stages:
+        _profile("scan", lambda: scan_batch(inputs), extra)
+    if "postfilter" in stages:
+        _profile("postfilter", lambda: postfilter_batch(drs, inputs, frame),
+                 {"frames": len(drs)})
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
