@@ -1,18 +1,24 @@
 """Public decoder API of the port: create / decode / drain.
 
-Port of `av1dec_tpu.api` for all-intra streams on a torch device:
+Port of `av1dec_tpu.api` on a torch device:
 
     dec = Decoder(device="cuda")
     for _, tu in read_ivf(path):
         for frame in dec.decode(tu):
             frame.planes  # list of np arrays (Y, U, V)
 
-Every frame runs on the device path (wavefront scan + postfilter); a
-frame that path cannot take raises NotImplementedError naming the
-reason: there is no host pixel path in this package yet.  The DPB keeps
+Every frame runs on the device path: intra frames and translational
+inter frames (SIMPLE motion mode, unscaled references, average or
+distance-weighted compound) through the MC pass, the wavefront scan and
+the postfilter.  A frame that path cannot take (OBMC, warped motion,
+inter-intra, wedge or difference-weighted compound, scaled references,
+global warp, intra block copy) raises NotImplementedError naming the
+tool: there is no host pixel path in this package yet.  The DPB keeps
 each reference frame's planes on the host and on the device
-(`dev_planes`).  `decode_stream_batched` is the batched, pipelined
-decode of a whole stream (the JAX package's `bench.py`
+(`dev_planes`); inter frames read their references from the device
+copy, so a frame decoded on the card never round-trips to the host as a
+reference.  `decode_stream_batched` is the batched, pipelined decode of
+a whole all-intra stream (the JAX package's `bench.py`
 `decode_stream_pipelined`).
 """
 from __future__ import annotations
@@ -91,7 +97,7 @@ class _Slot:
 def _unsupported(dr):
     raise NotImplementedError(
         f"av1dec_tpu_torch: {dr.unsupported_reason()} is not on the "
-        f"device path of this port (all-intra frames only)")
+        f"device path of this port, and it has no host pixel path yet")
 
 
 class Decoder:
@@ -129,8 +135,20 @@ class Decoder:
                     for i in range(8):
                         self._dpb[i] = slot
                 continue
+            refs = None
+            if not hdr.get("frame_is_intra", 1):
+                refs = {}
+                for rf in range(1, 8):
+                    idx = hdr["ref_frame_idx"][rf - 1]
+                    slot = self._dpb[idx]
+                    if slot is not None:
+                        refs[rf] = {"planes": slot.planes,
+                                    "width": slot.width,
+                                    "height": slot.height,
+                                    "dev_planes": slot.dev_planes}
             t0 = time.monotonic()
-            dr = DeviceRecon(seq, hdr, plans, config=self.config)
+            dr = DeviceRecon(seq, hdr, plans, config=self.config,
+                             refs=refs)
             if not dr.supported():
                 _unsupported(dr)
             planes = dr.run(self.device)
@@ -155,6 +173,7 @@ class Decoder:
                               .get("frame_restoration_type", [0, 0, 0]))),
                 "recon_path": "device",
                 "ms": round((time.monotonic() - t0) * 1000, 2),
+                "inter_plan_ms": round(dr.inter_plan_s * 1000, 2),
             })
             slot = _Slot(planes=planes,
                          width=hdr["upscaled_width"],
@@ -223,9 +242,11 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
     """Decode the temporal units `datas` of an all-intra stream in
     batches of `batch` frames: frames are independent, so one wavefront
     scan serves the whole batch (level i of every frame at the same scan
-    position).  The host prep of batch k+1 (residual itx, lane packing,
-    deblock maps) runs on a worker thread while the device works on
-    batch k.  Returns per-frame host plane lists (int64).
+    position).  An inter frame raises NotImplementedError: it depends on
+    earlier frames of the batch (decode such streams with `Decoder`).
+    The host prep of batch k+1 (residual itx, lane packing, deblock
+    maps) runs on a worker thread while the device works on batch k.
+    Returns per-frame host plane lists (int64).
 
     `timings`: optional dict that receives the seconds of each stage of
     STAGES; the device is then synchronised after the scan and after the
@@ -243,6 +264,11 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
             if hdr.get("show_existing_frame"):
                 raise NotImplementedError(
                     "decode_stream_batched: show_existing_frame")
+            if not hdr.get("frame_is_intra", 1):
+                raise NotImplementedError(
+                    "decode_stream_batched decodes all-intra streams: "
+                    "the frames of a batch are independent, and an inter "
+                    "frame is not (decode it with Decoder)")
             dr = DeviceRecon(parser.seq, hdr, plans)
             if not dr.supported():
                 _unsupported(dr)

@@ -5,9 +5,9 @@ Usage:
                                [--frame-md5] [--limit N] [--summary]
                                [--device cuda|cpu]
 
-Decodes all-intra streams on the torch device path (see `api.py`):
-raw YUV output, MD5 checksums of the output planes, frame limits and a
-decode-rate summary, as the JAX package's CLI.
+Decodes intra and translational inter frames on the torch device path
+(see `api.py`): raw YUV output, MD5 checksums of the output planes,
+frame limits and a decode-rate summary, as the JAX package's CLI.
 """
 import argparse
 import hashlib

@@ -15,8 +15,13 @@ What differs, because torch runs eagerly:
   families: directional, palette, filter-intra, CfL) is read from host
   arrays built once per batch by `plan_windows`, so the loop never waits
   for the device (on a card it runs under torch's sync debug mode
-  "error", so a synchronisation inside it raises).  A window runs on exactly its `count` lanes instead of
-  Bmax masked ones; the lanes' results are the same.
+  "error", so a synchronisation inside it raises).  A window runs on
+  exactly its `count` lanes instead of Bmax masked ones; the lanes'
+  results are the same.
+* MF_INTER lanes (inter blocks with a residual; the MC pass already
+  wrote their prediction into the frame buffer) run when the config's
+  optional 6th element `has_inter` is set, as in the JAX scan, and only
+  in the windows that hold one (host flag FLAG_INTER).
 * JAX's gathers clamp out-of-range indices; every index here is clamped
   to the same range (the frame's last pixel) or is in range by
   construction.  JAX's scatter `mode="drop"` becomes a write to a trash
@@ -37,7 +42,7 @@ import torch
 from av1dec_tpu_torch.ops.spec import intra
 from av1dec_tpu_torch.ops.tables_data import FILTER_INTRA_TAPS, SM_WEIGHTS
 from av1dec_tpu_torch.pipeline.wavefront import (MF_DC, MF_DIR, MF_FI, MF_H,
-                                                 MF_PAETH, MF_PAL,
+                                                 MF_INTER, MF_PAETH, MF_PAL,
                                                  MF_SMOOTH, MF_SMOOTH_V,
                                                  MF_V, _SCALAR_FIELDS)
 
@@ -51,8 +56,8 @@ _KERN = np.concatenate([np.zeros((1, 5), np.int64),
 _SM = np.asarray(SM_WEIGHTS, np.int32)
 _FI_TAPS = np.asarray(FILTER_INTRA_TAPS, np.int32)[:, :, :7]  # [5, 8, 7]
 
-# per-window host flags (plan_windows): columns of the [S, nb, 4] array
-FLAG_DIR, FLAG_PAL, FLAG_CFL, FLAG_FI_PATCHES = range(4)
+# per-window host flags (plan_windows): columns of the [S, nb, 5] array
+FLAG_DIR, FLAG_PAL, FLAG_CFL, FLAG_FI_PATCHES, FLAG_INTER = range(5)
 
 
 def make_windows(starts_by_t, counts_by_t, bcaps, ts):
@@ -88,18 +93,19 @@ def make_windows(starts_by_t, counts_by_t, bcaps, ts):
 
 def window_flags(packed_by_t, ws, wc, ts):
     """Host flags of every (window, bucket) from the packed lane rows:
-    [S, nb, 4] int64 with FLAG_DIR / FLAG_PAL / FLAG_CFL (the window has
-    such a lane) and FLAG_FI_PATCHES (4x2 patches of the window's
-    largest filter-intra block; 0 = no filter-intra lane)."""
+    [S, nb, 5] int64 with FLAG_DIR / FLAG_PAL / FLAG_CFL / FLAG_INTER
+    (the window has such a lane) and FLAG_FI_PATCHES (4x2 patches of the
+    window's largest filter-intra block; 0 = no filter-intra lane)."""
     S = ws.shape[0]
-    flags = np.zeros((S, len(ts), 4), np.int64)
+    flags = np.zeros((S, len(ts), 5), np.int64)
     for bi, t in enumerate(ts):
         rows = packed_by_t[t]
         mf = rows[:, _F["mode_family"]]
         lo = ws[:, bi].astype(np.int64)
         hi = lo + wc[:, bi]
         for col, lane in ((FLAG_DIR, mf == MF_DIR), (FLAG_PAL, mf == MF_PAL),
-                          (FLAG_CFL, rows[:, _F["cfl_maxx"]] > 0)):
+                          (FLAG_CFL, rows[:, _F["cfl_maxx"]] > 0),
+                          (FLAG_INTER, mf == MF_INTER)):
             cs = np.concatenate([[0], np.cumsum(lane)])
             flags[:, bi, col] = cs[hi] - cs[lo] > 0
         patches = np.where(mf == MF_FI, (rows[:, _F["h"]] >> 1) *
@@ -404,10 +410,11 @@ def _cfl_adjust(frame, n, pred, sv, T, bd, sub_x, sub_y, pixmask, c):
 
 
 def _apply_bucket(frame, n, rows, res_flat, pal_t, flags, *, T, bd, sub_x,
-                  sub_y, eef, c):
+                  sub_y, eef, inter, c):
     """One window of one bucket: predict its lanes (`rows`, [B, F] int32,
     every lane valid), add the residual, scatter into `frame` in place.
-    `flags`: this window's host flags (window_flags)."""
+    `flags`: this window's host flags (window_flags); `inter`: the
+    config's has_inter."""
     B = rows.shape[0]
     ar = c["ar"]
     sv = {f: rows[:, k] for f, k in _F.items()}
@@ -462,6 +469,12 @@ def _apply_bucket(frame, n, rows, res_flat, pal_t, flags, *, T, bd, sub_x,
         out = torch.where((mf == MF_FI)[:, None, None],
                           _predict_fi(above, left, sv, T, bd,
                                       int(flags[FLAG_FI_PATCHES]), c), out)
+    if inter and flags[FLAG_INTER]:
+        # inter residual lane: the MC pass already wrote this block's
+        # prediction into the frame; gather it back, the shared residual
+        # add below then clips and rewrites it
+        out = torch.where((mf == MF_INTER)[:, None, None],
+                          frame[fidx_raw.clamp(0, n - 1).long()], out)
 
     # residual: per-lane pixel window of the packed flat buffer
     roff = sv["res_idx"]
@@ -482,9 +495,12 @@ def run_wavefront(frame0, packed, res_flat, pal_tensors, config, windows):
     frame0: flat int32 [n]; packed: {T: [Ncap, F] int32}; res_flat:
     packed residual pixels (int16 for 8-bit); pal_tensors: {T: [P, T, T]
     int32}, all on one device.  config: (((T, Bmax), ...), bd, sub_x,
-    sub_y, eef).  windows: (ws, wc, flags) host arrays from
-    `plan_windows`.  Returns the reconstructed flat int32 [n] frame."""
-    (buckets, bd, sub_x, sub_y, eef) = config
+    sub_y, eef[, has_inter]): has_inter enables the MF_INTER lanes of
+    frames whose MC pass already ran.  windows: (ws, wc, flags) host
+    arrays from `plan_windows`.  Returns the reconstructed flat int32
+    [n] frame."""
+    (buckets, bd, sub_x, sub_y, eef, *rest) = config
+    inter = bool(rest and rest[0])
     ws, wc, flags = windows
     n = frame0.shape[0]
     frame = torch.zeros(n + 1, dtype=torch.int32, device=frame0.device)
@@ -498,7 +514,8 @@ def run_wavefront(frame0, packed, res_flat, pal_tensors, config, windows):
                     continue
                 _apply_bucket(frame, n, packed[T][st[bi]:st[bi] + cn[bi]],
                               res_flat, pal_tensors[T], fl[bi], T=T, bd=bd,
-                              sub_x=sub_x, sub_y=sub_y, eef=eef, c=c)
+                              sub_x=sub_x, sub_y=sub_y, eef=eef,
+                              inter=inter, c=c)
     return frame[:n]
 
 

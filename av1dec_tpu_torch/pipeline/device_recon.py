@@ -1,12 +1,16 @@
 """Device frame reconstruction driver (torch).
 
-Port of `av1dec_tpu.pipeline.device_recon` for ALL-INTRA frames: the
-host packs residuals (NumPy dequant + inverse transform), wavefront
-lanes, palette tensors and deblock edge maps (`prep_batch`); the device
-runs the batched wavefront scan and, per frame, the postfilter chain
-slice -> deblock -> CDEF -> superres -> Wiener LR -> narrowing cast
-(`dispatch_batch`).  Frames with a self-guided restoration unit finish
-LR on the host after the fetch (`finish_host`).
+Port of `av1dec_tpu.pipeline.device_recon` for intra frames and
+translational inter frames: the host packs residuals (NumPy dequant +
+inverse transform), wavefront lanes, palette tensors, deblock edge maps
+and, for inter frames, the MC lanes and reference pieces of their
+`InterPlan` (`prep_batch`); the device runs, per inter frame, the MC
+pass (`ops/kernels/mc.run_mc`, predictions straight into the frame
+buffer), then the batched wavefront scan (intra lanes and MF_INTER
+residual lanes) and, per frame, the postfilter chain slice -> deblock
+-> CDEF -> superres -> Wiener LR -> narrowing cast (`dispatch_batch`).
+Frames with a self-guided restoration unit finish LR on the host after
+the fetch (`finish_host`).
 
 The lane rows, windows and buffer layouts are the JAX package's
 (`BUCKETS`, `BWIN`, `FLAT_PAD`, `_DEV_FIELDS`), so both packages scan
@@ -14,11 +18,13 @@ identical inputs (`to_torch_inputs` uploads the JAX package's
 `prep_batch` dict as well as this one's).  What the JAX package does
 only to keep its jit keys stable is left out: power-of-two capacities
 and batch padding (eager torch runs exact sizes), and the scan's CHUNK.
-Inter frames, intra block copy and column-sharded CDEF are not ported.
+Inter frames with exotic tools (`device_inter.ineligible_reason`),
+intra block copy and column-sharded CDEF are not ported.
 """
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -28,10 +34,12 @@ from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
 from av1dec_tpu_torch.ops.kernels.deblock import deblock_planes
 from av1dec_tpu_torch.ops.kernels.lr import lr_wiener_planes
+from av1dec_tpu_torch.ops.kernels.mc import run_mc
 from av1dec_tpu_torch.ops.kernels.wavefront import (_DEV_FIELDS,
                                                     plan_windows,
                                                     run_wavefront)
 from av1dec_tpu_torch.ops.spec import itx
+from av1dec_tpu_torch.pipeline import device_inter as di
 from av1dec_tpu_torch.pipeline import wavefront as wf
 
 TX_DIMS = itx.TX_DIMS
@@ -97,18 +105,39 @@ def _i32(a, device):
 
 
 class DeviceRecon:
-    """Device executor for one all-intra frame; `run()` returns host
-    planes.  Use `supported()` first: inter and intra-block-copy frames
-    have no schedule here."""
+    """Device executor for one frame; `run()` returns host planes.  Use
+    `supported()` first: intra-block-copy frames, and inter frames
+    without `refs` or with an inter tool the MC lanes do not express,
+    have no schedule here.
 
-    def __init__(self, seq, hdr, plans, config=None):
+    `refs`: for inter frames, {ref_frame (1..7): {"planes", "width",
+    "height", "dev_planes"}} from the decoder's DPB, as in the JAX
+    package; `dev_planes` (device tensors or None) are read in place of
+    the host planes."""
+
+    def __init__(self, seq, hdr, plans, config=None, refs=None):
         self.config = config
+        self.refs = refs
         self._pre_cdef_dev = None
         self._final_dev = None
         self._sr_on_device = False
         self._lr_on_device = False
-        self.sch = wf.build_schedule(seq, hdr, plans)
+        self.sch = wf.build_schedule(seq, hdr, plans,
+                                     allow_inter=refs is not None)
         self.seq, self.hdr, self.plans = seq, hdr, plans
+        self._inter_plan = None
+        self._inter_reason = None
+        self.inter_plan_s = 0.0  # host seconds of the InterPlan
+        if self.sch is not None and self.sch.has_inter:
+            self._inter_reason = di.ineligible_reason(
+                hdr, plans, refs, self.sch.num_planes)
+            if self._inter_reason is None:
+                t0 = time.perf_counter()
+                self._inter_plan = di.InterPlan(seq, hdr, plans, refs,
+                                                self.sch)
+                self.inter_plan_s = time.perf_counter() - t0
+            else:
+                self.sch = None  # exotic inter tools: not on this path
         if self.sch is not None:
             # deterministic per-(w, h) offsets: palette slots per bucket,
             # residual PIXEL offsets into the packed flat buffer
@@ -133,8 +162,10 @@ class DeviceRecon:
             return None
         if self.plans is not None and self.plans.grid("intrabc").any():
             return "intra block copy frame"
+        if self._inter_reason is not None:
+            return self._inter_reason
         if self.plans is not None and self.plans.grid("is_inter").any():
-            return "inter frame"
+            return "inter frame without reference frames"
         return "frame without transform blocks"
 
     def _needs_pre_cdef(self):
@@ -401,10 +432,11 @@ class DeviceRecon:
 
 def prep_batch(drs):
     """Host-side half of the batched device decode: residual packing,
-    lane assembly, palette tensors, and deblock edge maps — all NumPy,
-    no device calls.  Frames share one flat buffer at a per-frame
-    stride; `decode_stream_batched` runs this on a worker thread so it
-    overlaps the device work of the previous batch."""
+    lane assembly, palette tensors, deblock edge maps and the inter
+    frames' MC lanes and reference pieces ("mc": [(frame index, lanes,
+    pieces)]), with no device work.  Frames share one flat buffer at a
+    per-frame stride; `decode_stream_batched` runs this on a worker
+    thread so it overlaps the device work of the previous batch."""
     K = len(drs)
     sch0 = drs[0].sch
     flat = sch0.flat_len + FLAT_PAD
@@ -458,26 +490,35 @@ def prep_batch(drs):
     from av1dec_tpu_torch.ops.spec.deblock import build_deblock_maps
     dbl = [build_deblock_maps(dr.seq, dr.hdr, dr.plans,
                               dr.sch.num_planes) for dr in drs]
+    mc = [(f, dr._inter_plan.lanes, dr._inter_plan.ref_np)
+          for f, dr in enumerate(drs) if dr._inter_plan is not None]
     return {
         "K": K, "flat": flat,
         "res_np": res_np, "pal_np": pal_np, "inputs_np": inputs_np,
-        "buckets": tuple(buckets), "dbl": dbl,
+        "buckets": tuple(buckets), "dbl": dbl, "mc": mc,
         "config": (tuple(buckets), sch0.bd, sch0.sub_x, sch0.sub_y,
-                   sch0.enable_edge_filter),
+                   sch0.enable_edge_filter) + ((True,) if mc else ()),
     }
 
 
 def to_torch_inputs(prep, device):
     """Upload a `prep_batch` dict (this package's or the JAX package's:
-    the keys and layouts are the same) to `device`, and plan the scan's
-    windows and their host flags.  Returns the dict `dispatch_batch`
-    and `run_wavefront` take."""
+    the keys and layouts are the same; "mc" entries may hold either
+    package's InterPlan lanes) to `device`, and plan the scan's windows
+    and their host flags.  Reference pieces already on `device` are not
+    copied.  Returns the dict `dispatch_batch` and `run_wavefront`
+    take."""
     dev = torch.device(device)
     ts = [t for t, _ in prep["buckets"]]
     inputs = prep["inputs_np"]
     windows = plan_windows({t: inputs[t][0] for t in ts},
                            {t: inputs[t][1] for t in ts},
                            {t: inputs[t][2] for t in ts}, prep["buckets"])
+    bd = prep["config"][1]
+    mc = []
+    for f, lanes, pieces in prep.get("mc", ()):
+        cfg, rows = di.upload_lanes(lanes, bd, dev, f * prep["flat"])
+        mc.append((di.pack_ref_flat(pieces, dev), rows, cfg))
     return {
         "n": prep["K"] * prep["flat"], "flat": prep["flat"],
         "res": torch.as_tensor(prep["res_np"], device=dev),
@@ -486,15 +527,19 @@ def to_torch_inputs(prep, device):
         "windows": windows,
         "config": tuple(prep["config"]),
         "dbl": prep["dbl"],
+        "mc": mc,
         "device": dev,
     }
 
 
 def scan_batch(inputs):
-    """The batched wavefront scan: flat int32 frame buffer on the
-    device."""
+    """The MC pass of every inter frame (at its offset in the flat
+    buffer), then the batched wavefront scan: flat int32 frame buffer
+    on the device."""
     frame0 = torch.zeros(inputs["n"], dtype=torch.int32,
                          device=inputs["device"])
+    for ref_flat, lanes, cfg in inputs["mc"]:
+        frame0 = run_mc(frame0, ref_flat, lanes, cfg)
     return run_wavefront(frame0, inputs["packed"], inputs["res"],
                          inputs["pal"], inputs["config"], inputs["windows"])
 

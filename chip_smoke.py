@@ -26,10 +26,21 @@ Phases (each raises on failure, so the script exits non-zero):
    ms; then the frame kernel's device time and bound on the stream's own
    first frame (its planes after deblock and its real strengths);
 4. entry point: `api.Decoder(device="cuda")` on every committed small
-   stream against the manifest, one `cdef_frame` launch per frame with
-   CDEF on.
+   stream, intra and inter, against the manifest, one `cdef_frame`
+   launch per frame with CDEF on;
+5. inter path: `api.Decoder(device="cuda")` on the committed 1080p
+   low-delay stream (1 key frame, 7 inter frames): every frame's MD5
+   against the manifest, all 7 inter frames on the device path (MC pass,
+   then the scan with MF_INTER lanes; both run under torch's sync debug
+   mode "error"), one `cdef_frame` launch per frame with CDEF on and no
+   `cdef_filter` launch; then a warm timed pass (fps, mean key-frame and
+   inter-frame ms, host InterPlan ms) and, on one inter frame's real
+   lanes, the MC pass's device time (torch.profiler: every device
+   interval of one `run_mc` call, no host cost), its kernel count, its
+   wrapper-inclusive time and its bound.
 
-Prints a `{"kernels": [...]}` line, the card's name and power limit, and
+The `launches` of the `{"kernels": [...]}` line count phases 3 and 5.
+Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
 """
@@ -45,6 +56,8 @@ import torch
 _REPO = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
+BIG_INTER = "bench_1080p_inter"
+INTER_FRAMES = 7  # inter frames of BIG_INTER (after its key frame)
 # H100 SXM data sheet: HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
 # int32 add, compare, min/max, shift and multiply-add results per clock
@@ -105,10 +118,8 @@ def cuda_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
-def kernel_ms(fn, name, iters):
-    """Mean device milliseconds, per fn() call, of the kernels whose name
-    holds `name`: torch.profiler's device intervals of those kernels over
-    a warm loop of calls, so no host cost is counted."""
+def _device_events(fn, iters):
+    """torch.profiler's device intervals over a warm loop of fn()."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -118,8 +129,24 @@ def kernel_ms(fn, name, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters):
+    """(mean device milliseconds, kernels) per fn() call: every device
+    interval (kernels and copies), so no host cost is counted."""
+    ev = _device_events(fn, iters)
+    if not ev:
+        raise RuntimeError("the profiler recorded no device work")
+    kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+    return (sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters,
+            len(kernels) / iters)
+
+
+def kernel_ms(fn, name, iters):
+    """Mean device milliseconds, per fn() call, of the kernels whose name
+    holds `name` (no host cost counted)."""
+    ev = [e for e in _device_events(fn, iters) if name in e.name]
     if not ev:
         raise RuntimeError(f"the profiler recorded no {name} kernel")
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
@@ -443,7 +470,7 @@ def phase_entry_point(manifest, dev):
     from av1dec_tpu_torch.config import DecoderConfig
     from av1dec_tpu_torch.container import read_ivf
     from av1dec_tpu_torch.ops.kernels import cdef
-    names = sorted(n for n in manifest if n != BIG)
+    names = sorted(n for n in manifest if n not in (BIG, BIG_INTER))
     n_cdef = 0
     cdef.launches = cdef.frame_launches = 0
     for name in names:
@@ -462,6 +489,108 @@ def phase_entry_point(manifest, dev):
     log(f"entry point: Decoder(device='cuda') matches the manifest on "
         f"{len(names)} streams: {' '.join(names)}; cdef_frame launches "
         f"{n_cdef} = frames with CDEF on, cdef_filter launches 0")
+
+
+def mc_work(ref_flat, lanes, cfg):
+    """(bytes, int32 operations, lanes, predicted pixels) of one MC pass:
+    each predicted pixel's reference read per list and its frame write,
+    the lane rows read once; the 8-tap multiply-adds of the horizontal
+    pass ((h + 7) x w a list) and the vertical pass (h x w a list)."""
+    from av1dec_tpu_torch.ops.kernels.mc import _MF
+    nbytes = ops = n_lanes = px = 0
+    for (T, comp, _n) in cfg[0]:
+        rows = lanes[(T, comp)].cpu().long()
+        w, h = rows[:, _MF["w"]], rows[:, _MF["h"]]
+        lists = 1 + comp
+        px += int((w * h).sum())
+        nbytes += int((w * h).sum()) * (lists * ref_flat.element_size() + 4)
+        nbytes += rows.numel() * 4
+        ops += lists * 8 * int((w * (2 * h + 7)).sum())
+        n_lanes += rows.shape[0]
+    return nbytes, ops, n_lanes, px
+
+
+def phase_inter(manifest, dev, int_rate):
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.config import DecoderConfig
+    from av1dec_tpu_torch.container import read_ivf
+    from av1dec_tpu_torch.ops.kernels import cdef, mc
+    from av1dec_tpu_torch.pipeline import device_recon
+    datas = [d for _, d in read_ivf(os.path.join(TESTDATA,
+                                                 BIG_INTER + ".ivf"))]
+    want = manifest[BIG_INTER]["frames"]
+    n_cdef = cdef_frames(datas)
+
+    def decode():
+        dec = Decoder(DecoderConfig(apply_grain=False), device=dev)
+        md5s = []
+        for tu in datas:
+            md5s += [f.display_md5() for f in dec.decode(tu)]
+        dec.close()
+        return md5s, dec.stats
+
+    cdef.launches = cdef.frame_launches = 0
+    t0 = time.perf_counter()
+    got, stats = decode()
+    t_first = time.perf_counter() - t0
+    launches = cdef.frame_launches
+    check_launches(cdef, n_cdef, "inter path")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{BIG_INTER} frames differ from the "
+                             f"manifest: {bad} of {len(want)}")
+    inter = [s for s in stats if not s["intra"]]
+    on_dev = [s for s in inter if s["recon_path"] == "device"]
+    if len(inter) != INTER_FRAMES or len(on_dev) != INTER_FRAMES:
+        raise AssertionError(f"{len(on_dev)} of {len(inter)} inter frames "
+                             f"on the device path, {INTER_FRAMES} expected")
+    log(f"inter path: {len(got)}/{len(want)} frames of {BIG_INTER} match "
+        f"the manifest; {len(on_dev)}/{len(inter)} inter frames on the "
+        f"device path (MC pass and scan under sync debug mode 'error'); "
+        f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
+        f"cdef_filter launches 0; first pass {t_first:.3f} s")
+
+    t0 = time.perf_counter()
+    _, stats = decode()
+    dt = time.perf_counter() - t0
+
+    def mean(key, intra):
+        v = [s[key] for s in stats if s["intra"] == intra]
+        return sum(v) / len(v)
+    log(json.dumps({"fps_1080p_inter": len(want) / dt, "seconds": dt,
+                    "frames": len(want),
+                    "key_frame_ms": mean("ms", 1),
+                    "inter_frame_ms": mean("ms", 0),
+                    "inter_plan_ms": mean("inter_plan_ms", 0),
+                    "card": card_line()}))
+
+    # the MC pass of the stream's last inter frame, as the decoder gives it
+    seen = []
+    real = device_recon.run_mc
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+    device_recon.run_mc = keep
+    try:
+        _, stats = decode()
+    finally:
+        device_recon.run_mc = real
+    frame0, ref_flat, lanes, cfg = seen[-1]
+
+    def run():
+        mc.run_mc(frame0, ref_flat, lanes, cfg)
+    k_ms, n_k = device_ms(run, 20)
+    w_ms = cuda_ms(run, 20)
+    nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
+    b, by = bound(nbytes, ops, int_rate)
+    log(json.dumps({"mc_pass": {
+        "frame": len(stats) - 1, "lanes": n_lanes, "pixels": px,
+        "buckets": len(cfg[0]), "device_ms": k_ms, "kernels": n_k,
+        "wrapper_ms": w_ms, "inter_plan_ms": stats[-1]["inter_plan_ms"],
+        "bound_ms": b, "bound_by": by, "bytes": nbytes, "int32_ops": ops,
+        "card": card_line()}}))
+    return launches
 
 
 def main():
@@ -488,6 +617,7 @@ def main():
     frame, filt = phase_kernels(dev, int_rate)
     launches = phase_main_path(manifest, dev, int_rate)
     phase_entry_point(manifest, dev)
+    launches += phase_inter(manifest, dev, int_rate)
 
     def line(name, replaces, k, n):
         return {"name": name, "route": "cuda",

@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from torch_port_helpers import parse, small_streams
+from torch_port_helpers import intra_streams, parse
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = "av1dec_tpu", "av1dec_tpu_torch"
@@ -19,7 +19,7 @@ WHOLE = ["config.py", "ops/tables_data.py", "ops/qm_data.py",
          "ops/spec/__init__.py", "ops/spec/intra.py", "ops/spec/itx.py",
          "ops/spec/dequant.py", "ops/spec/deblock.py", "ops/spec/cdef.py",
          "ops/spec/superres.py", "ops/spec/superres_filter.py",
-         "ops/spec/lr.py"]
+         "ops/spec/lr.py", "ops/inter_tables.py", "ops/spec/inter.py"]
 
 # (port module, reference module, top-level names that may differ)
 PARTIAL = [
@@ -37,11 +37,16 @@ PARTIAL = [
     ("pipeline/device_recon.py", "pipeline/device_recon.py",
      {"_superres_dev", "_postfilter_chain", "DeviceRecon", "prep_batch",
       "dispatch_batch"}),
+    ("ops/kernels/mc.py", "ops/kernels/mc.py",
+     {"_mc_list", "_mc_bucket", "run_mc"}),
+    ("pipeline/device_inter.py", "pipeline/device_inter.py", {"InterPlan"}),
 ]
 # methods of DeviceRecon copied as they are
 DR_METHODS = ["_needs_pre_cdef", "_residuals_flat_np", "_bucket_rows",
               "_palette_tensor", "_lr_wiener_args", "_superres_args",
               "finish_host"]
+# methods of InterPlan copied as they are
+IP_METHODS = ["_pack_refs", "_list_params", "_build_lanes"]
 
 
 def _read(pkg, rel):
@@ -108,13 +113,22 @@ def test_partial_copies(port_rel, ref_rel, changed):
             f"{port_rel}: {name} differs from {REF}/{ref_rel}"
 
 
+def _methods(src, cls):
+    return {n.name: n for n in _defs(src)[cls].body
+            if isinstance(n, ast.FunctionDef)}
+
+
 def test_device_recon_methods_copied():
-    def methods(src):
-        cls = _defs(src)["DeviceRecon"]
-        return {n.name: n for n in cls.body if isinstance(n, ast.FunctionDef)}
-    port = methods(_read(PORT, "pipeline/device_recon.py"))
-    ref = methods(_ref_src("pipeline/device_recon.py"))
+    port = _methods(_read(PORT, "pipeline/device_recon.py"), "DeviceRecon")
+    ref = _methods(_ref_src("pipeline/device_recon.py"), "DeviceRecon")
     for name in DR_METHODS:
+        assert ast.dump(port[name]) == ast.dump(ref[name]), name
+
+
+def test_inter_plan_methods_copied():
+    port = _methods(_read(PORT, "pipeline/device_inter.py"), "InterPlan")
+    ref = _methods(_ref_src("pipeline/device_inter.py"), "InterPlan")
+    for name in IP_METHODS:
         assert ast.dump(port[name]) == ast.dump(ref[name]), name
 
 
@@ -145,6 +159,16 @@ def test_lifted_helpers_and_tables():
     assert tw._DEV_FIELDS == jw._DEV_FIELDS
     assert (tdr.BUCKETS, tdr.BWIN, tdr.FLAT_PAD) == \
         (jdr.BUCKETS, jdr.BWIN, jdr.FLAT_PAD)
+    from av1dec_tpu.ops.kernels import mc as jmc
+    from av1dec_tpu.pipeline import device_inter as jdi
+    from av1dec_tpu_torch.ops.kernels import mc as tmc
+    from av1dec_tpu_torch.pipeline import device_inter as tdi
+    assert tmc.MC_FIELDS == jmc.MC_FIELDS and tmc._MF == jmc._MF
+    np.testing.assert_array_equal(tmc._FTAB, jmc._FTAB)
+    assert (tdi.MC_BUCKETS, tdi.BLOCK_W4, tdi.BLOCK_H4) == \
+        (jdi.MC_BUCKETS, jdi.BLOCK_W4, jdi.BLOCK_H4)
+    for w in range(1, 140):
+        assert tdi._bucket_for(w, 4) == jdi._bucket_for(w, 4)
 
 
 def _plans_equal(a, b):
@@ -181,7 +205,7 @@ def _nested_equal(a, b):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("name", small_streams())
+@pytest.mark.parametrize("name", intra_streams())
 def test_host_half_equal_on_stream(name, native_lib):
     from av1dec_tpu.ops.kernels import cdef as jc
     from av1dec_tpu.ops.spec.deblock import build_deblock_maps as jmaps

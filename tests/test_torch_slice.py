@@ -4,8 +4,10 @@
   DeviceRecon.run() on two streams (8-bit 4:2:0 with deblock + CDEF,
   and 10-bit), and those equal the committed manifest;
 - the port's Decoder reproduces the manifest's per-frame MD5s on every
-  committed small stream, and so does the libaom oracle;
-- a frame the device path cannot take raises NotImplementedError.
+  committed small stream, intra and inter, and so does the libaom oracle;
+- an inter frame with a tool the device path cannot take (OBMC, warped
+  motion) raises NotImplementedError naming it, a simple inter frame
+  decodes, and the batched all-intra decode refuses inter frames.
 """
 import numpy as np
 import pytest
@@ -70,7 +72,34 @@ def test_manifest_matches_libaom(name):
     assert got == want
 
 
+def _raises_naming(case, tool, tmp_path):
+    """A frame of the gen_inter_battery stream `case` with an inter tool
+    the MC lanes do not express raises, naming the tool; the frames
+    before it decode."""
+    import gen_inter_battery as gb
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.container import read_ivf
+    path = gb.gen_case(case, gb.CASES[case], str(tmp_path))
+    dec = Decoder(device="cpu")
+    shown = 0
+    with pytest.raises(NotImplementedError, match=tool):
+        for _, tu in read_ivf(path):
+            shown += len(dec.decode(tu))
+    assert shown >= 1 and dec.stats[0]["intra"]
+    dec.close()
+
+
 def test_inter_frame_raises_not_implemented(tmp_path):
+    _raises_naming("obmconly", "OBMC", tmp_path)
+
+
+def test_warped_inter_frame_raises_not_implemented(tmp_path):
+    _raises_naming("warponly", "local warped motion", tmp_path)
+
+
+def test_simple_inter_frame_decodes(tmp_path):
+    """A random-noise key frame and inter frame: both decode on the
+    device path and equal the libaom oracle."""
     import aomffi
     from av1dec_tpu_torch.api import Decoder
     rng = np.random.default_rng(0)
@@ -82,9 +111,24 @@ def test_inter_frame_raises_not_implemented(tmp_path):
         pkts += enc.encode(y, c, c, pts=i)
     pkts += enc.flush()
     enc.close()
+    path = str(tmp_path / "noise.ivf")
+    aomffi.write_ivf(path, pkts, 64, 64)
     dec = Decoder(device="cpu")
-    assert len(dec.decode(pkts[0][1])) == 1       # the key frame
-    with pytest.raises(NotImplementedError, match="inter frame"):
-        for _, tu in pkts[1:]:
-            dec.decode(tu)
+    got = []
+    for _, tu in pkts:
+        got += dec.decode(tu)
     dec.close()
+    assert [s["intra"] for s in dec.stats] == [1, 0]
+    assert all(s["recon_path"] == "device" for s in dec.stats)
+    ora = aomffi.oracle_decode_ivf(path)
+    assert len(got) == len(ora) == 2
+    for f, o in zip(got, ora):
+        for p, r in zip(f.planes, (o.y, o.u, o.v)):
+            np.testing.assert_array_equal(np.asarray(p)[:64, :r.shape[1]],
+                                          r)
+
+
+def test_batched_decode_raises_on_inter_frame(native_lib):
+    from av1dec_tpu_torch.api import decode_stream_batched
+    with pytest.raises(NotImplementedError, match="all-intra"):
+        decode_stream_batched(tus("t160x96"), device="cpu")

@@ -10,7 +10,7 @@ import torch
 
 from torch_port_helpers import parse
 
-MF_DIR, MF_PAL, MF_FI = 3, 8, 9
+MF_DIR, MF_PAL, MF_FI, MF_INTER = 3, 8, 9, 10
 
 
 def _jax_prep(name, k):
@@ -64,8 +64,8 @@ def test_window_flags_match_lanes(name, native_lib):
     from av1dec_tpu.ops.kernels.wavefront import make_windows as jwin
     from av1dec_tpu_torch.ops.kernels.wavefront import (FLAG_CFL, FLAG_DIR,
                                                         FLAG_FI_PATCHES,
-                                                        FLAG_PAL, _F,
-                                                        plan_windows)
+                                                        FLAG_INTER, FLAG_PAL,
+                                                        _F, plan_windows)
     prep = _jax_prep(name, 1)
     ts = [t for t, _ in prep["buckets"]]
     inp = prep["inputs_np"]
@@ -85,7 +85,8 @@ def test_window_flags_match_lanes(name, native_lib):
             want = [(mf == MF_DIR).any(), (mf == MF_PAL).any(),
                     (rows[:, _F["cfl_maxx"]] > 0).any(),
                     ((rows[fi, _F["h"]] >> 1) *
-                     (rows[fi, _F["w"]] >> 2)).max() if fi.any() else 0]
+                     (rows[fi, _F["w"]] >> 2)).max() if fi.any() else 0,
+                    (mf == MF_INTER).any()]
             got = flags[s, bi, [FLAG_DIR, FLAG_PAL, FLAG_CFL,
-                                FLAG_FI_PATCHES]]
+                                FLAG_FI_PATCHES, FLAG_INTER]]
             assert list(got) == [int(w) for w in want], (s, bi)

@@ -5,7 +5,7 @@ import os
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "av1dec_tpu_torch", "testdata")
-BIG = "bench_1080p_intra"
+BIG = ("bench_1080p_intra", "bench_1080p_inter")
 
 
 def manifest():
@@ -14,8 +14,20 @@ def manifest():
 
 
 def small_streams():
-    """Names of the committed small streams (everything but the 1080p)."""
-    return sorted(n for n in manifest() if n != BIG)
+    """Names of the committed small streams (all but the two 1080p)."""
+    return sorted(n for n in manifest() if n not in BIG)
+
+
+def intra_streams():
+    """The small all-intra streams."""
+    man = manifest()
+    return [n for n in small_streams() if not man[n].get("inter")]
+
+
+def inter_streams():
+    """The small streams with inter frames."""
+    man = manifest()
+    return [n for n in small_streams() if man[n].get("inter")]
 
 
 def stream_path(name):
@@ -43,3 +55,38 @@ def parse(name, pkg):
                 out.append((p.seq, hdr, plans))
     p.close()
     return out
+
+
+def decode_capture(name):
+    """Decode a committed stream with the port's Decoder on the CPU.
+    Returns (display MD5s, Decoder.stats, the DeviceRecon of every coded
+    frame, in coding order)."""
+    from av1dec_tpu_torch import api
+    from av1dec_tpu_torch.config import DecoderConfig
+    seen = []
+
+    class Keep(api.DeviceRecon):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen.append(self)
+
+    real = api.DeviceRecon
+    api.DeviceRecon = Keep
+    try:
+        dec = api.Decoder(DecoderConfig(apply_grain=False), device="cpu")
+        md5s = []
+        for tu in tus(name):
+            md5s += [f.display_md5() for f in dec.decode(tu)]
+        dec.close()
+    finally:
+        api.DeviceRecon = real
+    return md5s, dec.stats, seen
+
+
+def jax_refs(refs):
+    """A DeviceRecon's `refs` for the JAX package: device planes as numpy."""
+    if refs is None:
+        return None
+    return {r: dict(e, dev_planes=None if e["dev_planes"] is None else
+                    [p.numpy() for p in e["dev_planes"]])
+            for r, e in refs.items()}

@@ -4,6 +4,14 @@ Writes `av1dec_tpu_torch/testdata/`:
 
 - `bench_1080p_intra.ivf`: the 1920x1080 8-frame all-intra stream, made
   exactly as `bench.py:ensure_stream` makes it (seed 5);
+- `bench_1080p_inter.ivf`: the 1920x1080 low-delay stream (1 key frame,
+  7 inter frames; OBMC, warped motion, masked compound, inter-intra and
+  global motion off), made exactly as `bench.py:ensure_inter_stream`
+  makes it (seed 17);
+- the inter streams of `tests/test_device_inter.py` (BATTERY), made by
+  `tools/gen_inter_battery.py:gen_case` with its seeds, plus
+  INTER_CASES: a low-delay 10-bit stream and a lag-8 stream with
+  compound blocks, both with the exotic inter tools off;
 - one small all-intra stream per `tests/conftest.py` SPEC_CASES entry,
   seeded with `zlib.crc32(name)` so the content is the same on every
   machine, plus EXTRA_CASES: `palette` (screen content with palette
@@ -11,13 +19,17 @@ Writes `av1dec_tpu_torch/testdata/`:
   (self-guided restoration units);
 - `manifest.json`: per stream, the per-frame MD5s of the libaom oracle
   decode: the coded planes (Y only for monochrome) at the displayed
-  size, as uint8 or uint16 bytes (`av1dec_tpu_torch.api.display_md5`).
+  size, as uint8 or uint16 bytes (`av1dec_tpu_torch.api.display_md5`),
+  the file's size, and `"inter": true` for the streams with inter
+  frames.
 
 A stream is kept only when the JAX reference (`av1dec_tpu.api.Decoder`
-on the device path, CPU backend) decodes every frame of it to the
-oracle's MD5s; the script reports the streams it dropped.
+on the device path, CPU backend) takes every frame of it on its device
+path and decodes it to the oracle's MD5s; the script reports the
+streams it dropped.
 
     JAX_PLATFORMS=cpu python tools/gen_torch_testdata.py [--skip-1080p]
+        [--only NAME ...]
 """
 import argparse
 import hashlib
@@ -35,6 +47,30 @@ sys.path.insert(0, os.path.join(_REPO, "tests"))
 
 OUT = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
+BIG_INTER = "bench_1080p_inter"
+
+# tests/test_device_inter.py: _SIMPLE, then _MIXED
+BATTERY = ["neither", "mrf3", "aq0b", "t160x96", "w136",
+           "lowdelay", "bframes", "interbd10", "intermono"]
+# the inter tools the device MC path does not take, off
+_SIMPLE_TOOLS = [("enable-obmc", "0"), ("enable-warped-motion", "0"),
+                 ("enable-masked-comp", "0"),
+                 ("enable-interintra-comp", "0"),
+                 ("enable-global-motion", "0")]
+# gen_inter_battery.gen_case specs: 10-bit and compound lanes on the
+# device path even where a _MIXED stream falls back to the host.  At
+# cpu 3 the encoder picks no compound block in this content; with
+# distance-weighted compound on, the JAX reference differs from libaom
+# (its `ops/spec/inter.py:dist_weights`), so the compound stream has
+# average compound only.
+INTER_CASES = {
+    "inter_bd10": dict(w=128, h=96, n=4, cpu=6, bd=10,
+                       extra=_SIMPLE_TOOLS),
+    "inter_compound": dict(w=128, h=96, n=10, cpu=1, lag=8,
+                           extra=_SIMPLE_TOOLS +
+                           [("enable-dist-wtd-comp", "0"),
+                            ("auto-alt-ref", "1")]),
+}
 
 # extra case beside SPEC_CASES: few-colour screen content, so the scan
 # sees palette lanes (aomenc only searches palette for screen content)
@@ -121,6 +157,49 @@ def _encode_1080p(path):
     aomffi.write_ivf(path, pkts, W, H)
 
 
+def _encode_1080p_inter(path):
+    """Same content, encoder settings and seed as
+    bench.ensure_inter_stream."""
+    import aomffi
+    W, H, FRAMES = 1920, 1080, 8
+    rng = np.random.default_rng(17)
+    pad = 64
+    yy, xx = np.mgrid[:H + pad, :W + pad]
+    base_y = (110 + 70 * np.sin(xx / 17.0) * np.cos(yy / 23.0) +
+              rng.normal(0, 10, (H + pad, W + pad))).clip(0, 255) \
+        .astype(np.uint8)
+    base_u = (128 + 40 * np.sin(xx[::2, ::2] / 13.0)).clip(0, 255) \
+        .astype(np.uint8)
+    base_v = (128 + 40 * np.cos(yy[::2, ::2] / 15.0)).clip(0, 255) \
+        .astype(np.uint8)
+    enc = aomffi.AomEncoder(
+        W, H, cpu_used=6, kf_max_dist=9999, lag=0, end_usage=3,
+        options=[("cq-level", "40"),
+                 ("enable-obmc", "0"), ("enable-warped-motion", "0"),
+                 ("enable-masked-comp", "0"),
+                 ("enable-interintra-comp", "0"),
+                 ("enable-global-motion", "0")])
+    pkts = []
+    for i in range(FRAMES):
+        dy, dx = 2 * i, 3 * i
+        y = base_y[dy:dy + H, dx:dx + W]
+        u = base_u[dy // 2:dy // 2 + H // 2, dx // 2:dx // 2 + W // 2]
+        v = base_v[dy // 2:dy // 2 + H // 2, dx // 2:dx // 2 + W // 2]
+        pkts += enc.encode(y, u, v, pts=i)
+    pkts += enc.flush()
+    enc.close()
+    aomffi.write_ivf(path, pkts, W, H)
+
+
+def _encode_inter(name, path):
+    """A gen_inter_battery stream (its seed is the crc32 of `name`)."""
+    import gen_inter_battery as gb
+    spec = INTER_CASES.get(name) or gb.CASES[name]
+    if os.path.exists(path):
+        os.remove(path)
+    assert gb.gen_case(name, spec, os.path.dirname(path)) == path
+
+
 def display_md5(planes, bit_depth):
     """MD5 of a frame's planes as uint8 (8-bit) or uint16 bytes."""
     h = hashlib.md5()
@@ -169,15 +248,19 @@ def main():
         with open(man_path) as f:
             manifest = json.load(f)
     cases = dict(SPEC_CASES, **EXTRA_CASES)
-    names = args.only or sorted(cases)
+    names = args.only or sorted(cases) + BATTERY + sorted(INTER_CASES)
     if not args.skip_1080p and not args.only:
-        names = names + [BIG]
+        names = names + [BIG, BIG_INTER]
     for name in names:
         path = os.path.join(OUT, name + ".ivf")
         if name == BIG:
             _encode_1080p(path)
-        else:
+        elif name == BIG_INTER:
+            _encode_1080p_inter(path)
+        elif name in cases:
             _encode_small(name, cases[name], path)
+        else:
+            _encode_inter(name, path)
         ref, same = check_stream(path)
         size = os.path.getsize(path)
         if not same:
@@ -186,6 +269,8 @@ def main():
             manifest.pop(name, None)
             continue
         manifest[name] = {"frames": ref, "bytes": size}
+        if name == BIG_INTER or name not in cases and name != BIG:
+            manifest[name]["inter"] = True
         print(f"keep {name}: {len(ref)} frames, {size} bytes", flush=True)
     with open(man_path, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
