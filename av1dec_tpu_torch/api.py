@@ -8,12 +8,13 @@ Port of `av1dec_tpu.api` on a torch device:
             frame.planes  # list of np arrays (Y, U, V)
 
 Every frame runs on the device path: intra frames and translational
-inter frames (SIMPLE motion mode, unscaled references, average or
-distance-weighted compound) through the MC pass, the wavefront scan and
-the postfilter.  A frame that path cannot take (OBMC, warped motion,
-inter-intra, wedge or difference-weighted compound, scaled references,
-global warp, intra block copy) raises NotImplementedError naming the
-tool: there is no host pixel path in this package yet.  The DPB keeps
+inter frames (SIMPLE motion mode, unscaled references, one reference
+list) through the MC pass, the wavefront scan and the postfilter.  A
+frame that path cannot take (OBMC, warped motion, inter-intra, any
+compound prediction, scaled references, global warp, intra block copy)
+raises NotImplementedError naming the tool: there is no host pixel path
+in this package yet.  Compound prediction is refused because the
+reference package's differs from libaom (ROADMAP queue 3).  The DPB keeps
 each reference frame's planes on the host and on the device
 (`dev_planes`); inter frames read their references from the device
 copy, so a frame decoded on the card never round-trips to the host as a

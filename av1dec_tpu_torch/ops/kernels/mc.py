@@ -30,6 +30,8 @@ package.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -110,22 +112,32 @@ def _mc_bucket(frame, n, ref_flat, rows, T, comp, bd, ftab, ar):
     frame[fidx.reshape(-1).long()] = out.reshape(-1)
 
 
-def run_mc(frame0, ref_flat, lanes, config):
-    """All MC lanes of one frame into the flat frame buffer.
+@functools.lru_cache(maxsize=None)
+def _consts(device):
+    """(filter table, index ramp) on `device`, uploaded once."""
+    return (torch.as_tensor(_FTAB, device=device),
+            torch.arange(128 + 7, dtype=torch.int32, device=device))
 
-    frame0: flat int32 [n]; ref_flat: packed reference planes (narrow
-    dtype, cast after the gather); lanes: {(T, comp): [N, F] int32} on
-    the same device; config: (((T, comp, N), ...), bd).  Returns the new
-    flat int32 [n] frame; frame0 is left as it was."""
+
+def mc_into(frame, ref_flat, lanes, config):
+    """All MC lanes of one frame, in place: `frame` is a flat int32
+    [n + 1] buffer whose last slot is the trash slot.  ref_flat: packed
+    reference planes (uint8 or int32); lanes: {(T, comp): [N, F] int32}
+    on the same device; config: (((T, comp, N), ...), bd)."""
     buckets, bd = config
-    n = frame0.shape[0]
-    dev = frame0.device
-    frame = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    frame[:n] = frame0
-    ftab = torch.as_tensor(_FTAB, device=dev)
-    ar = torch.arange(128 + 7, dtype=torch.int32, device=dev)
-    with _no_device_sync(dev):
+    n = frame.shape[0] - 1
+    ftab, ar = _consts(frame.device)
+    with _no_device_sync(frame.device):
         for (T, comp, _n) in buckets:
             _mc_bucket(frame, n, ref_flat, lanes[(T, comp)], T, comp, bd,
                        ftab, ar)
+
+
+def run_mc(frame0, ref_flat, lanes, config):
+    """`mc_into` on a copy of the flat int32 [n] frame `frame0`.  Returns
+    the new [n] frame; frame0 is left as it was."""
+    n = frame0.shape[0]
+    frame = torch.empty(n + 1, dtype=torch.int32, device=frame0.device)
+    frame[:n] = frame0
+    mc_into(frame, ref_flat, lanes, config)
     return frame[:n]

@@ -19,9 +19,10 @@ What differs, because torch runs eagerly:
   exactly its `count` lanes instead of Bmax masked ones; the lanes'
   results are the same.
 * MF_INTER lanes (inter blocks with a residual; the MC pass already
-  wrote their prediction into the frame buffer) run when the config's
-  optional 6th element `has_inter` is set, as in the JAX scan, and only
-  in the windows that hold one (host flag FLAG_INTER).
+  wrote their prediction into the frame buffer) run in the windows that
+  hold one (host flag FLAG_INTER).  Such lanes exist only in schedules
+  built with `allow_inter`, so the JAX config's optional 6th element
+  `has_inter`, which keeps its jit keys stable, is accepted and ignored.
 * JAX's gathers clamp out-of-range indices; every index here is clamped
   to the same range (the frame's last pixel) or is in range by
   construction.  JAX's scatter `mode="drop"` becomes a write to a trash
@@ -35,6 +36,7 @@ All pixel math is int32, bit-exact with the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -125,7 +127,9 @@ def plan_windows(packed_by_t, starts_by_t, counts_by_t, buckets):
     return ws, wc, window_flags(packed_by_t, ws, wc, ts)
 
 
+@functools.lru_cache(maxsize=None)
 def _consts(device):
+    """The scan's constant tables on `device`, uploaded once."""
     i32 = dict(dtype=torch.int32, device=device)
     return {
         "ar": torch.arange(4 * 64 + 3, **i32),
@@ -410,11 +414,10 @@ def _cfl_adjust(frame, n, pred, sv, T, bd, sub_x, sub_y, pixmask, c):
 
 
 def _apply_bucket(frame, n, rows, res_flat, pal_t, flags, *, T, bd, sub_x,
-                  sub_y, eef, inter, c):
+                  sub_y, eef, c):
     """One window of one bucket: predict its lanes (`rows`, [B, F] int32,
     every lane valid), add the residual, scatter into `frame` in place.
-    `flags`: this window's host flags (window_flags); `inter`: the
-    config's has_inter."""
+    `flags`: this window's host flags (window_flags)."""
     B = rows.shape[0]
     ar = c["ar"]
     sv = {f: rows[:, k] for f, k in _F.items()}
@@ -469,7 +472,7 @@ def _apply_bucket(frame, n, rows, res_flat, pal_t, flags, *, T, bd, sub_x,
         out = torch.where((mf == MF_FI)[:, None, None],
                           _predict_fi(above, left, sv, T, bd,
                                       int(flags[FLAG_FI_PATCHES]), c), out)
-    if inter and flags[FLAG_INTER]:
+    if flags[FLAG_INTER]:
         # inter residual lane: the MC pass already wrote this block's
         # prediction into the frame; gather it back, the shared residual
         # add below then clips and rewrites it
@@ -489,34 +492,27 @@ def _apply_bucket(frame, n, rows, res_flat, pal_t, flags, *, T, bd, sub_x,
     frame[fidx.reshape(-1).long()] = out.reshape(-1)
 
 
-def run_wavefront(frame0, packed, res_flat, pal_tensors, config, windows):
-    """Whole-batch wavefront scan.
+def scan_into(frame, packed, res_flat, pal_tensors, config, windows):
+    """Whole-batch wavefront scan, in place.
 
-    frame0: flat int32 [n]; packed: {T: [Ncap, F] int32}; res_flat:
-    packed residual pixels (int16 for 8-bit); pal_tensors: {T: [P, T, T]
-    int32}, all on one device.  config: (((T, Bmax), ...), bd, sub_x,
-    sub_y, eef[, has_inter]): has_inter enables the MF_INTER lanes of
-    frames whose MC pass already ran.  windows: (ws, wc, flags) host
-    arrays from `plan_windows`.  Returns the reconstructed flat int32
-    [n] frame."""
-    (buckets, bd, sub_x, sub_y, eef, *rest) = config
-    inter = bool(rest and rest[0])
+    frame: flat int32 [n + 1] buffer whose last slot is the trash slot;
+    packed: {T: [Ncap, F] int32}; res_flat: packed residual pixels (int16
+    for 8-bit); pal_tensors: {T: [P, T, T] int32}, all on one device.
+    config: (((T, Bmax), ...), bd, sub_x, sub_y, eef[, has_inter]).
+    windows: (ws, wc, flags) host arrays from `plan_windows`."""
+    (buckets, bd, sub_x, sub_y, eef, *_has_inter) = config
     ws, wc, flags = windows
-    n = frame0.shape[0]
-    frame = torch.zeros(n + 1, dtype=torch.int32, device=frame0.device)
-    frame[:n] = frame0
-    c = _consts(frame0.device)
+    n = frame.shape[0] - 1
+    c = _consts(frame.device)
     ws, wc, flags = ws.tolist(), wc.tolist(), flags.tolist()
-    with _no_device_sync(frame0.device):
+    with _no_device_sync(frame.device):
         for st, cn, fl in zip(ws, wc, flags):
             for bi, (T, _bmax) in enumerate(buckets):
                 if cn[bi] == 0:
                     continue
                 _apply_bucket(frame, n, packed[T][st[bi]:st[bi] + cn[bi]],
                               res_flat, pal_tensors[T], fl[bi], T=T, bd=bd,
-                              sub_x=sub_x, sub_y=sub_y, eef=eef,
-                              inter=inter, c=c)
-    return frame[:n]
+                              sub_x=sub_x, sub_y=sub_y, eef=eef, c=c)
 
 
 @contextlib.contextmanager

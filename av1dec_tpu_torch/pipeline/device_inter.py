@@ -2,15 +2,18 @@
 
 Copied from `av1dec_tpu.pipeline.device_inter`: decides per frame
 whether EVERY inter block is expressible as device MC lanes
-(translational, unscaled refs, SIMPLE motion mode, compound
-average/distance only — the overwhelming majority of real-video inter
-blocks), and if so extracts the lane schedule consumed by
-`ops/kernels/mc.run_mc`: per prediction unit (block plane region or
+(translational, unscaled refs, SIMPLE motion mode, one reference list),
+and if so extracts the lane schedule consumed by
+`ops/kernels/mc.mc_into`: per prediction unit (block plane region or
 sub-8x8 chroma piece) one row of MC_FIELDS with destination window,
 packed-reference indexing, tap origins, filter rows, and compound
 weights.  Frames with any exotic block (warp, OBMC, wedge/diffwtd,
-inter-intra, intra-bc, scaled refs) are not on the device path;
-`ineligible_reason` names the tool.
+inter-intra, intra-bc, scaled refs, global warp) are not on the device
+path; `ineligible_reason` decides and names the tool.  It also refuses
+average and distance-weighted compound, which the reference takes: the
+reference's compound prediction differs from libaom (ROADMAP queue 3),
+so the lanes below still build compound rows, but no frame with one
+reaches the MC pass until that fault is fixed.
 
 `frame_eligible`, `_pack_refs`, `_list_params` and `_build_lanes` are
 the reference's.  What differs: the reference's `InterPlan.ref_flat`
@@ -96,13 +99,17 @@ def frame_eligible(hdr, plans, refs, num_planes):
 
 
 def ineligible_reason(hdr, plans, refs, num_planes):
-    """None when `frame_eligible` holds; else the inter tool (checked in
-    frame_eligible's order) that keeps the frame off the device MC
-    path."""
-    if frame_eligible(hdr, plans, refs, num_planes):
-        return None
+    """The port's eligibility policy: None when the device MC path takes
+    the frame, else the inter tool that keeps it off (checked in
+    frame_eligible's order).  Stricter than the reference's
+    `frame_eligible` in one point: a frame with any compound block is
+    refused, because the reference's compound prediction differs from
+    libaom (ROADMAP queue 3).  A frame `frame_eligible` refuses for a
+    reason not named here gets a neutral one."""
     g = plans.grid
     inter = np.asarray(g("is_inter")) != 0
+    if not inter.any():
+        return None
     if refs is None:
         return "inter frame without reference frames"
     if np.asarray(g("intrabc")).any():
@@ -116,16 +123,29 @@ def ineligible_reason(hdr, plans, refs, num_planes):
         return "inter frame with inter-intra prediction"
     if (np.asarray(g("compound_type"))[inter] > 1).any():
         return "inter frame with wedge or difference-weighted compound"
-    used = np.concatenate([np.asarray(g("ref0"))[inter],
-                           np.asarray(g("ref1"))[inter]])
-    for r in np.unique(used[used > INTRA_FRAME]).tolist():
+    ref0 = np.asarray(g("ref0"))
+    if (np.asarray(g("ref1"))[inter] > INTRA_FRAME).any():
+        return "compound prediction (reference fault, ROADMAP queue 3)"
+    for r in np.unique(ref0[inter & (ref0 > INTRA_FRAME)]).tolist():
         ent = refs.get(r)
         if ent is None:
             return "inter frame with a missing reference frame"
         if (ent["width"], ent["height"]) != (hdr["frame_width"],
                                              hdr["frame_height"]):
             return "inter frame with a scaled reference"
-    return "inter frame with global warp motion"
+    # [SPEC §7.11.3.1 useWarp]: GLOBALMV on a >= 8x8 block whose
+    # reference has a more than translational global motion
+    # (GLOBAL_GLOBALMV is compound, refused above)
+    gm_type = np.asarray((hdr.get("gm") or {}).get("type", [0] * 8))
+    bsz = np.asarray(g("bsize"))
+    glob = inter & (np.asarray(g("mode")) == GLOBALMV) & \
+        (np.minimum(np.asarray(BLOCK_W4)[bsz], np.asarray(BLOCK_H4)[bsz])
+         >= 2)
+    if (gm_type[np.clip(ref0, 0, 7)][glob] > 1).any():
+        return "inter frame with global warp motion"
+    if not frame_eligible(hdr, plans, refs, num_planes):
+        return "inter tool outside the MC lanes"
+    return None
 
 
 def pack_ref_flat(pieces, device):

@@ -5,7 +5,7 @@ translational inter frames: the host packs residuals (NumPy dequant +
 inverse transform), wavefront lanes, palette tensors, deblock edge maps
 and, for inter frames, the MC lanes and reference pieces of their
 `InterPlan` (`prep_batch`); the device runs, per inter frame, the MC
-pass (`ops/kernels/mc.run_mc`, predictions straight into the frame
+pass (`ops/kernels/mc.mc_into`, predictions straight into the frame
 buffer), then the batched wavefront scan (intra lanes and MF_INTER
 residual lanes) and, per frame, the postfilter chain slice -> deblock
 -> CDEF -> superres -> Wiener LR -> narrowing cast (`dispatch_batch`).
@@ -18,8 +18,9 @@ identical inputs (`to_torch_inputs` uploads the JAX package's
 `prep_batch` dict as well as this one's).  What the JAX package does
 only to keep its jit keys stable is left out: power-of-two capacities
 and batch padding (eager torch runs exact sizes), and the scan's CHUNK.
-Inter frames with exotic tools (`device_inter.ineligible_reason`),
-intra block copy and column-sharded CDEF are not ported.
+Inter frames that `device_inter.ineligible_reason` refuses (exotic
+tools, and compound prediction while the reference's differs from
+libaom), intra block copy and column-sharded CDEF are not ported.
 """
 
 from __future__ import annotations
@@ -34,10 +35,9 @@ from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
 from av1dec_tpu_torch.ops.kernels.deblock import deblock_planes
 from av1dec_tpu_torch.ops.kernels.lr import lr_wiener_planes
-from av1dec_tpu_torch.ops.kernels.mc import run_mc
+from av1dec_tpu_torch.ops.kernels.mc import mc_into
 from av1dec_tpu_torch.ops.kernels.wavefront import (_DEV_FIELDS,
-                                                    plan_windows,
-                                                    run_wavefront)
+                                                    plan_windows, scan_into)
 from av1dec_tpu_torch.ops.spec import itx
 from av1dec_tpu_torch.pipeline import device_inter as di
 from av1dec_tpu_torch.pipeline import wavefront as wf
@@ -497,7 +497,7 @@ def prep_batch(drs):
         "res_np": res_np, "pal_np": pal_np, "inputs_np": inputs_np,
         "buckets": tuple(buckets), "dbl": dbl, "mc": mc,
         "config": (tuple(buckets), sch0.bd, sch0.sub_x, sch0.sub_y,
-                   sch0.enable_edge_filter) + ((True,) if mc else ()),
+                   sch0.enable_edge_filter),
     }
 
 
@@ -506,7 +506,7 @@ def to_torch_inputs(prep, device):
     the keys and layouts are the same; "mc" entries may hold either
     package's InterPlan lanes) to `device`, and plan the scan's windows
     and their host flags.  Reference pieces already on `device` are not
-    copied.  Returns the dict `dispatch_batch` and `run_wavefront`
+    copied.  Returns the dict `dispatch_batch` and `scan_batch`
     take."""
     dev = torch.device(device)
     ts = [t for t, _ in prep["buckets"]]
@@ -534,14 +534,16 @@ def to_torch_inputs(prep, device):
 
 def scan_batch(inputs):
     """The MC pass of every inter frame (at its offset in the flat
-    buffer), then the batched wavefront scan: flat int32 frame buffer
-    on the device."""
-    frame0 = torch.zeros(inputs["n"], dtype=torch.int32,
-                         device=inputs["device"])
+    buffer), then the batched wavefront scan, both in place on one
+    buffer with its trash slot: flat int32 frame buffer on the
+    device."""
+    n = inputs["n"]
+    frame = torch.zeros(n + 1, dtype=torch.int32, device=inputs["device"])
     for ref_flat, lanes, cfg in inputs["mc"]:
-        frame0 = run_mc(frame0, ref_flat, lanes, cfg)
-    return run_wavefront(frame0, inputs["packed"], inputs["res"],
-                         inputs["pal"], inputs["config"], inputs["windows"])
+        mc_into(frame, ref_flat, lanes, cfg)
+    scan_into(frame, inputs["packed"], inputs["res"], inputs["pal"],
+              inputs["config"], inputs["windows"])
+    return frame[:n]
 
 
 def postfilter_batch(drs, inputs, frame):

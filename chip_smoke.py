@@ -36,8 +36,9 @@ Phases (each raises on failure, so the script exits non-zero):
    `cdef_filter` launch; then a warm timed pass (fps, mean key-frame and
    inter-frame ms, host InterPlan ms) and, on one inter frame's real
    lanes, the MC pass's device time (torch.profiler: every device
-   interval of one `run_mc` call, no host cost), its kernel count, its
-   wrapper-inclusive time and its bound.
+   interval of one `mc_into` call on the scan's buffer, as the decoder
+   makes it, no host cost), its kernel count, its wrapper-inclusive time
+   and its bound.
 
 The `launches` of the `{"kernels": [...]}` line count phases 3 and 5.
 Prints that line, the card's name and power limit, and
@@ -566,20 +567,21 @@ def phase_inter(manifest, dev, int_rate):
 
     # the MC pass of the stream's last inter frame, as the decoder gives it
     seen = []
-    real = device_recon.run_mc
+    real = device_recon.mc_into
 
     def keep(*args):
         seen.append(args)
         return real(*args)
-    device_recon.run_mc = keep
+    device_recon.mc_into = keep
     try:
         _, stats = decode()
     finally:
-        device_recon.run_mc = real
-    frame0, ref_flat, lanes, cfg = seen[-1]
+        device_recon.mc_into = real
+    frame, ref_flat, lanes, cfg = seen[-1]
+    frame = frame.clone()
 
     def run():
-        mc.run_mc(frame0, ref_flat, lanes, cfg)
+        mc.mc_into(frame, ref_flat, lanes, cfg)
     k_ms, n_k = device_ms(run, 20)
     w_ms = cuda_ms(run, 20)
     nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)

@@ -30,7 +30,7 @@ PARTIAL = [
     ("ops/kernels/wavefront.py", "ops/kernels/wavefront.py",
      {"_gather_edges", "_edge_filter", "_upsample", "_dir_lut",
       "_predict_dir", "_predict_fi", "_smooth_all", "_paeth_b",
-      "_cfl_adjust", "_apply_bucket", "run_wavefront"}),
+      "_cfl_adjust", "_apply_bucket"}),
     ("ops/kernels/cdef.py", "ops/kernels/cdef.py",
      {"_PROJ_FLAT", "_DIV", "_UV_DIR_422", "_directions", "_ilog2",
       "_constrain", "_filter_plane", "_cdef_core", "cdef_frame"}),

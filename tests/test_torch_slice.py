@@ -6,8 +6,9 @@
 - the port's Decoder reproduces the manifest's per-frame MD5s on every
   committed small stream, intra and inter, and so does the libaom oracle;
 - an inter frame with a tool the device path cannot take (OBMC, warped
-  motion) raises NotImplementedError naming it, a simple inter frame
-  decodes, and the batched all-intra decode refuses inter frames.
+  motion, average or distance-weighted compound) raises
+  NotImplementedError naming it, a simple inter frame decodes, and the
+  batched all-intra decode refuses inter frames.
 """
 import numpy as np
 import pytest
@@ -72,14 +73,14 @@ def test_manifest_matches_libaom(name):
     assert got == want
 
 
-def _raises_naming(case, tool, tmp_path):
-    """A frame of the gen_inter_battery stream `case` with an inter tool
-    the MC lanes do not express raises, naming the tool; the frames
-    before it decode."""
+def _raises_naming(case, tool, tmp_path, spec=None):
+    """A frame of the gen_inter_battery stream `case` (made from `spec`,
+    by default its own) with an inter tool the device path does not take
+    raises, naming the tool; the frames before it decode."""
     import gen_inter_battery as gb
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.container import read_ivf
-    path = gb.gen_case(case, gb.CASES[case], str(tmp_path))
+    path = gb.gen_case(case, spec or gb.CASES[case], str(tmp_path))
     dec = Decoder(device="cpu")
     shown = 0
     with pytest.raises(NotImplementedError, match=tool):
@@ -95,6 +96,15 @@ def test_inter_frame_raises_not_implemented(tmp_path):
 
 def test_warped_inter_frame_raises_not_implemented(tmp_path):
     _raises_naming("warponly", "local warped motion", tmp_path)
+
+
+@pytest.mark.parametrize("case", ["c4", "c5"])
+def test_compound_inter_frame_raises_not_implemented(case, tmp_path):
+    """Distance-weighted (c4) and average (c5) compound frames stay off
+    the device path while the reference's compound differs from libaom."""
+    from gen_torch_testdata import COMPOUND_CASES
+    _raises_naming(case, "compound prediction", tmp_path,
+                   COMPOUND_CASES[case])
 
 
 def test_simple_inter_frame_decodes(tmp_path):
