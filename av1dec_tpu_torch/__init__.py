@@ -4,10 +4,12 @@ A port of `av1dec_tpu` (JAX on a TPU) to one NVIDIA H100.  The host
 half is copied from the JAX package as it is: the C++ front end
 (`native/`, OBU/header parsing and the msac entropy decoder emitting
 plan tensors), the container readers, the NumPy spec model
-(`ops/spec/`) and the wavefront schedule builder
-(`pipeline/wavefront.py`).  The device half is PyTorch
-(`ops/kernels/`, `pipeline/device_recon.py`), with the CDEF filter as
-a hand-written CUDA kernel (`csrc/cdef_filter.cu`).
+(`ops/spec/`), the wavefront schedule builder (`pipeline/wavefront.py`)
+and the block walk of the host pixel path (`pipeline/recon.py`,
+`pipeline/inter_pred.py`).  The device half is PyTorch (`ops/kernels/`,
+`pipeline/device_recon.py`), with CDEF as hand-written CUDA kernels:
+`csrc/cdef_frame.cu`, one launch per frame on both paths, and
+`csrc/cdef_filter.cu`, the per-plane filter that takes a caller's pad.
 
 The JAX package stays the reference: every part of this package gives
 the same integers as its `av1dec_tpu` counterpart on the same inputs

@@ -7,20 +7,22 @@ Port of `av1dec_tpu.api` on a torch device:
         for frame in dec.decode(tu):
             frame.planes  # list of np arrays (Y, U, V)
 
-Every frame runs on the device path: intra frames and translational
-inter frames (SIMPLE motion mode, unscaled references, one reference
-list) through the MC pass, the wavefront scan and the postfilter.  A
-frame that path cannot take (OBMC, warped motion, inter-intra, any
-compound prediction, scaled references, global warp, intra block copy)
-raises NotImplementedError naming the tool: there is no host pixel path
-in this package yet.  Compound prediction is refused because the
-reference package's differs from libaom (ROADMAP queue 3).  The DPB keeps
-each reference frame's planes on the host and on the device
-(`dev_planes`); inter frames read their references from the device
-copy, so a frame decoded on the card never round-trips to the host as a
-reference.  `decode_stream_batched` is the batched, pipelined decode of
-a whole all-intra stream (the JAX package's `bench.py`
-`decode_stream_pipelined`).
+Frames go to the device path when it takes them: intra frames and
+translational inter frames (SIMPLE motion mode, unscaled references, one
+reference list) through the MC pass, the wavefront scan and the
+postfilter.  The other frames (OBMC, local or global warp, inter-intra,
+scaled references, intra block copy) take the host pixel path,
+`pipeline/recon.FrameRecon`: a NumPy walk over the blocks with the
+residuals and CDEF on the same device.  A frame with a compound block
+raises NotImplementedError on either path: the reference package's
+compound prediction differs from libaom (ROADMAP queue 3).  Film grain
+is added at output (`ops/spec/film_grain.py`).  The DPB keeps each
+reference frame's planes on the host and, for a frame of the device
+path, on the device (`dev_planes`); inter frames of the device path read
+their references from the device copy, so such a frame never
+round-trips to the host as a reference.  `decode_stream_batched` is the
+batched, pipelined decode of a whole all-intra stream (the JAX package's
+`bench.py` `decode_stream_pipelined`).
 """
 from __future__ import annotations
 
@@ -35,10 +37,12 @@ import torch
 
 from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.bindings import NativeParser
+from av1dec_tpu_torch.pipeline.device_inter import compound_reason
 from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
                                                     postfilter_batch,
                                                     prep_batch, scan_batch,
                                                     to_torch_inputs)
+from av1dec_tpu_torch.pipeline.recon import FrameRecon
 
 
 def display_md5(planes, bit_depth, width, height, subsampling):
@@ -91,14 +95,8 @@ class _Slot:
     bit_depth: int = 8
     subsampling: tuple = (1, 1)
     # device-resident copy of the reference planes, kept when the frame
-    # had no host filter tail
+    # took the device path and had no host filter tail
     dev_planes: Optional[list] = None
-
-
-def _unsupported(dr):
-    raise NotImplementedError(
-        f"av1dec_tpu_torch: {dr.unsupported_reason()} is not on the "
-        f"device path of this port, and it has no host pixel path yet")
 
 
 class Decoder:
@@ -138,6 +136,11 @@ class Decoder:
                 continue
             refs = None
             if not hdr.get("frame_is_intra", 1):
+                reason = compound_reason(plans)
+                if reason is not None:
+                    raise NotImplementedError(
+                        f"av1dec_tpu_torch: {reason} is not decoded by "
+                        f"this port")
                 refs = {}
                 for rf in range(1, 8):
                     idx = hdr["ref_frame_idx"][rf - 1]
@@ -150,15 +153,21 @@ class Decoder:
             t0 = time.monotonic()
             dr = DeviceRecon(seq, hdr, plans, config=self.config,
                              refs=refs)
-            if not dr.supported():
-                _unsupported(dr)
-            planes = dr.run(self.device)
-            # retain the device planes as a future ref unless a host
-            # tail (SGR restoration, or host-side superres) changed them
-            dev_keep = None
-            if (not dr._needs_pre_cdef() or dr._lr_on_device) and \
-                    (not hdr.get("use_superres") or dr._sr_on_device):
-                dev_keep = dr._final_dev
+            dev_keep = host_reason = None
+            if dr.supported():
+                planes = dr.run(self.device)
+                path = "device"
+                # retain the device planes as a future ref unless a host
+                # tail (SGR restoration, or host-side superres) changed
+                # them
+                if (not dr._needs_pre_cdef() or dr._lr_on_device) and \
+                        (not hdr.get("use_superres") or dr._sr_on_device):
+                    dev_keep = dr._final_dev
+            else:
+                host_reason = dr.unsupported_reason()
+                planes = FrameRecon(seq, hdr, plans, refs=refs,
+                                    device=self.device).run()
+                path = "host"
             self.stats.append({
                 "frame_type": hdr["frame_type"],
                 "show": int(bool(hdr.get("show_frame"))),
@@ -172,7 +181,8 @@ class Decoder:
                 "superres": int(bool(hdr.get("use_superres"))),
                 "lr": int(any((hdr.get("lr") or {})
                               .get("frame_restoration_type", [0, 0, 0]))),
-                "recon_path": "device",
+                "recon_path": path,
+                "host_reason": host_reason,
                 "ms": round((time.monotonic() - t0) * 1000, 2),
                 "inter_plan_ms": round(dr.inter_plan_s * 1000, 2),
             })
@@ -199,11 +209,13 @@ class Decoder:
     def _emit(self, planes, slot, hdr) -> OutputFrame:
         grain = slot.grain if hdr.get("show_existing_frame") \
             else (hdr.get("grain") or {})
+        out_planes = planes
         if grain.get("apply_grain") and self.config.apply_grain:
-            raise NotImplementedError(
-                "av1dec_tpu_torch: film grain synthesis is not ported yet "
-                "(decode with DecoderConfig(apply_grain=False))")
-        return OutputFrame(planes=planes, bit_depth=slot.bit_depth,
+            from av1dec_tpu_torch.ops.spec import film_grain
+            out_planes = film_grain.apply_grain(
+                planes, grain, slot.bit_depth, slot.subsampling[0],
+                slot.subsampling[1])
+        return OutputFrame(planes=out_planes, bit_depth=slot.bit_depth,
                            subsampling=slot.subsampling,
                            order_hint=hdr.get("order_hint", 0),
                            frame_type=slot.frame_type,
@@ -272,7 +284,11 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
                     "frame is not (decode it with Decoder)")
             dr = DeviceRecon(parser.seq, hdr, plans)
             if not dr.supported():
-                _unsupported(dr)
+                raise NotImplementedError(
+                    f"decode_stream_batched: {dr.unsupported_reason()} is "
+                    f"not on the device path (decode the stream with "
+                    f"Decoder, which takes such frames on the host pixel "
+                    f"path)")
             drs.append(dr)
     parser.close()
     tm["parse"] = time.perf_counter() - t0

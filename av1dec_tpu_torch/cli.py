@@ -3,11 +3,13 @@
 Usage:
     python -m av1dec_tpu_torch <input.ivf> [-o out.yuv] [--md5]
                                [--frame-md5] [--limit N] [--summary]
-                               [--device cuda|cpu]
+                               [--device cuda|cpu] [--stats]
 
-Decodes intra and translational inter frames on the torch device path
-(see `api.py`): raw YUV output, MD5 checksums of the output planes,
-frame limits and a decode-rate summary, as the JAX package's CLI.
+Decodes every frame the JAX package's CLI decodes, but frames with a
+compound block (see `api.py`): raw YUV output, MD5 checksums of the
+output planes, frame limits, a decode-rate summary and the per-frame
+decode records (`--stats`, with the path each frame took), as the JAX
+package's CLI.
 """
 import argparse
 import hashlib
@@ -33,7 +35,7 @@ def _plane_bytes(frame):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m av1dec_tpu_torch",
-        description="AV1 decoder on PyTorch/CUDA (all-intra streams)")
+        description="AV1 decoder on PyTorch/CUDA")
     ap.add_argument("input", help="input file (IVF, Annex-B or OBU)")
     ap.add_argument("-o", "--output", help="raw YUV output file")
     ap.add_argument("--md5", action="store_true",
@@ -51,6 +53,8 @@ def main(argv=None):
                          "or cpu")
     ap.add_argument("--no-grain", action="store_true",
                     help="skip film-grain synthesis at output")
+    ap.add_argument("--stats", action="store_true",
+                    help="print per-frame decode records (JSON lines)")
     args = ap.parse_args(argv)
 
     from av1dec_tpu_torch.api import Decoder
@@ -83,6 +87,10 @@ def main(argv=None):
         if out_f:
             out_f.close()
     dt = time.monotonic() - t0
+    if args.stats:
+        import json
+        for rec in dec.stats:
+            print(json.dumps(rec), file=sys.stderr)
     if args.md5:
         print(total_md5.hexdigest())
     if args.summary:

@@ -13,7 +13,9 @@ path; `ineligible_reason` decides and names the tool.  It also refuses
 average and distance-weighted compound, which the reference takes: the
 reference's compound prediction differs from libaom (ROADMAP queue 3),
 so the lanes below still build compound rows, but no frame with one
-reaches the MC pass until that fault is fixed.
+reaches the MC pass until that fault is fixed.  `compound_reason` is
+that refusal alone: `api.Decoder` runs it on every inter frame before
+it routes the frame, so a compound frame reaches neither path.
 
 `frame_eligible`, `_pack_refs`, `_list_params` and `_build_lanes` are
 the reference's.  What differs: the reference's `InterPlan.ref_flat`
@@ -98,6 +100,18 @@ def frame_eligible(hdr, plans, refs, num_planes):
     return True
 
 
+def compound_reason(plans):
+    """The port refuses every frame with a compound block (an inter
+    block with a second reference), on both of its paths, while the
+    reference's compound prediction differs from libaom (ROADMAP queue
+    3): the refusal's text, or None."""
+    g = plans.grid
+    inter = np.asarray(g("is_inter")) != 0
+    if (np.asarray(g("ref1"))[inter] > INTRA_FRAME).any():
+        return "compound prediction (reference fault, ROADMAP queue 3)"
+    return None
+
+
 def ineligible_reason(hdr, plans, refs, num_planes):
     """The port's eligibility policy: None when the device MC path takes
     the frame, else the inter tool that keeps it off (checked in
@@ -124,8 +138,9 @@ def ineligible_reason(hdr, plans, refs, num_planes):
     if (np.asarray(g("compound_type"))[inter] > 1).any():
         return "inter frame with wedge or difference-weighted compound"
     ref0 = np.asarray(g("ref0"))
-    if (np.asarray(g("ref1"))[inter] > INTRA_FRAME).any():
-        return "compound prediction (reference fault, ROADMAP queue 3)"
+    reason = compound_reason(plans)
+    if reason is not None:
+        return reason
     for r in np.unique(ref0[inter & (ref0 > INTRA_FRAME)]).tolist():
         ent = refs.get(r)
         if ent is None:

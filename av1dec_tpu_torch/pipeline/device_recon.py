@@ -20,7 +20,9 @@ only to keep its jit keys stable is left out: power-of-two capacities
 and batch padding (eager torch runs exact sizes), and the scan's CHUNK.
 Inter frames that `device_inter.ineligible_reason` refuses (exotic
 tools, and compound prediction while the reference's differs from
-libaom), intra block copy and column-sharded CDEF are not ported.
+libaom) and intra block copy frames have no schedule here: `api.Decoder`
+sends them to the host pixel path (`pipeline/recon.FrameRecon`), but
+compound frames, which it refuses.  Column-sharded CDEF is not ported.
 """
 
 from __future__ import annotations

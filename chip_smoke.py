@@ -18,7 +18,11 @@ Phases (each raises on failure, so the script exits non-zero):
      shapes (8- and 10-bit), and with a caller pad;
    then each kernel's device time (torch.profiler: kernel time only, no
    host cost) and its wrapper-inclusive time at 1080p 4:2:0, beside the
-   plain version's time and the bound for the same inputs;
+   plain version's time and the bound for the same inputs; and B7, the
+   device residuals (`ops/kernels/itx.residual_bucket`, plain torch),
+   byte-equal on the card to its CPU run and to the NumPy spec model on
+   every valid (tx_size, tx_type) at 8 and 10 bits, and to its CPU run
+   on extreme levels, where both wrap in int32;
 3. main path: `decode_stream_batched(device="cuda")` on the committed
    1080p 8-frame all-intra stream: every frame's MD5 against the
    committed manifest, one `cdef_frame` launch per frame with CDEF on
@@ -26,8 +30,10 @@ Phases (each raises on failure, so the script exits non-zero):
    ms; then the frame kernel's device time and bound on the stream's own
    first frame (its planes after deblock and its real strengths);
 4. entry point: `api.Decoder(device="cuda")` on every committed small
-   stream, intra and inter, against the manifest, one `cdef_frame`
-   launch per frame with CDEF on;
+   stream, intra and inter, against the manifest (film grain applied),
+   each coded frame on the recon path the manifest records (the device
+   path, or the host pixel path for the streams marked "host"), one
+   `cdef_frame` launch per frame with CDEF on, on both paths;
 5. inter path: `api.Decoder(device="cuda")` on the committed 1080p
    low-delay stream (1 key frame, 7 inter frames): every frame's MD5
    against the manifest, all 7 inter frames on the device path (MC pass,
@@ -38,9 +44,24 @@ Phases (each raises on failure, so the script exits non-zero):
    lanes, the MC pass's device time (torch.profiler: every device
    interval of one `mc_into` call on the scan's buffer, as the decoder
    makes it, no host cost), its kernel count, its wrapper-inclusive time
-   and its bound.
+   and its bound;
+6. host pixel path: `api.Decoder(device="cuda")` on the committed 1080p
+   stream of the host path (1 key frame on the device path, 7 inter
+   frames with local warped motion on the host path: `FrameRecon`, with
+   B7 and `cdef_frame` on the card): every frame's MD5 against the
+   manifest, the frames on the host path against the manifest's recon
+   paths, one `cdef_frame` launch per frame with CDEF on and no
+   `cdef_filter` launch; then a warm timed pass (`fps_1080p_host`, mean
+   ms of the host-path and device-path frames, and the host-path frames'
+   ms split by stage: residuals, block walk, the NumPy filters and CDEF,
+   on the host clock) and, for the last host
+   frame's residual buckets, B7's device time (torch.profiler: every
+   device interval of one `residuals_device` call, uploads and fetch
+   included, no host cost), its kernel count, its wrapper-inclusive
+   time, the NumPy route's time on the same buckets (with which it is
+   held equal) and its bytes bound.
 
-The `launches` of the `{"kernels": [...]}` line count phases 3 and 5.
+The `launches` of the `{"kernels": [...]}` line count phases 3, 5 and 6.
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -58,6 +79,7 @@ _REPO = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
 BIG_INTER = "bench_1080p_inter"
+BIG_HOST = "bench_1080p_host"
 INTER_FRAMES = 7  # inter frames of BIG_INTER (after its key frame)
 # H100 SXM data sheet: HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -471,11 +493,12 @@ def phase_entry_point(manifest, dev):
     from av1dec_tpu_torch.config import DecoderConfig
     from av1dec_tpu_torch.container import read_ivf
     from av1dec_tpu_torch.ops.kernels import cdef
-    names = sorted(n for n in manifest if n not in (BIG, BIG_INTER))
-    n_cdef = 0
+    names = sorted(n for n in manifest
+                   if n not in (BIG, BIG_INTER, BIG_HOST))
+    n_cdef = n_host = 0
     cdef.launches = cdef.frame_launches = 0
     for name in names:
-        dec = Decoder(DecoderConfig(apply_grain=False), device=dev)
+        dec = Decoder(DecoderConfig(), device=dev)
         got = []
         datas = [tu for _, tu in read_ivf(os.path.join(TESTDATA,
                                                        name + ".ivf"))]
@@ -486,9 +509,15 @@ def phase_entry_point(manifest, dev):
         if got != manifest[name]["frames"]:
             raise AssertionError(f"{name}: Decoder(device='cuda') frames "
                                  f"differ from the manifest")
+        paths = [s["recon_path"] for s in dec.stats]
+        if paths != manifest[name].get("paths", ["device"] * len(paths)):
+            raise AssertionError(f"{name}: recon paths {paths} differ from "
+                                 f"the manifest's")
+        n_host += paths.count("host")
     check_launches(cdef, n_cdef, "small streams")
-    log(f"entry point: Decoder(device='cuda') matches the manifest on "
-        f"{len(names)} streams: {' '.join(names)}; cdef_frame launches "
+    log(f"entry point: Decoder(device='cuda') matches the manifest (film "
+        f"grain applied) on {len(names)} streams: {' '.join(names)}; "
+        f"{n_host} frames on the host pixel path; cdef_frame launches "
         f"{n_cdef} = frames with CDEF on, cdef_filter launches 0")
 
 
@@ -595,6 +624,203 @@ def phase_inter(manifest, dev, int_rate):
     return launches
 
 
+def phase_b7(dev):
+    """B7 on the card == its CPU run and the NumPy spec model."""
+    from av1dec_tpu_torch.ops.kernels import itx
+    from av1dec_tpu_torch.ops.spec import dequant
+    from av1dec_tpu_torch.ops.spec import itx as S
+    from av1dec_tpu_torch.ops.tables_data import AC_Q, DC_Q
+    rng = np.random.default_rng(7)
+    cases = itx.valid_transforms()
+    n = 0
+    for bd in (8, 10):
+        bi = {8: 0, 10: 1}[bd]
+        for tsz, tt in cases:
+            w, h = S.TX_DIMS[tsz]
+            m = min(w, 32) * min(h, 32)
+            B = 5
+            qidx = rng.integers(0, 256, B)
+            dcd = rng.integers(-8, 9, B)
+            acd = rng.integers(-8, 9, B)
+            dcq = DC_Q[bi, np.clip(qidx + dcd, 0, 255)].astype(np.int32)
+            acq = AC_Q[bi, np.clip(qidx + acd, 0, 255)].astype(np.int32)
+            # a conformant range: sparse levels whose dequantized values
+            # stay within 2^(bd+6) at DC and 2^(bd+3) elsewhere, so that
+            # no intermediate leaves int32
+            lim = np.maximum(1, (1 << (bd + 3)) // acq)[:, None]
+            levels = np.floor(rng.uniform(-1, 1, (B, m)) * (lim + 1))
+            levels[:, 0] = np.floor(rng.uniform(-1, 1, B) *
+                                    np.maximum(1, (1 << (bd + 6)) // dcq))
+            levels = levels.astype(np.int64)
+            levels[rng.random(levels.shape) < 0.6] = 0
+            spec = S.inverse_transform_lanes(
+                dequant.dequant_batch(levels, tsz, qidx, bd, dcd, acd),
+                tsz, tt, bd)
+            # and extreme levels, where int32 wraps on both devices
+            wild = rng.integers(-(1 << 20), (1 << 20) + 1, (B, m))
+            for kind, lv, want in (("spec", levels, spec),
+                                   ("extreme", wild, None)):
+                args = [torch.as_tensor(a.astype(np.int32))
+                        for a in (lv, dcq, acq)]
+                cpu = itx.residual_bucket(*args, tsz, tt, bd).numpy()
+                got = itx.residual_bucket(*[a.to(dev) for a in args], tsz,
+                                          tt, bd).cpu().numpy()
+                if not np.array_equal(got, cpu) or \
+                        (want is not None and not np.array_equal(got, want)):
+                    raise AssertionError(
+                        f"B7 on the card differs at tx_size {tsz} tx_type "
+                        f"{tt}, {bd}-bit, {kind} levels")
+            n += 1
+    log(f"B7 residual_bucket: byte-equal on the card to its CPU run and to "
+        f"the NumPy spec on {n} (tx_size, tx_type, bit depth) cases (every "
+        f"valid transform at 8 and 10 bits), and to its CPU run on extreme "
+        f"levels")
+
+
+def residual_work(buckets):
+    """(bytes, blocks) of one `residuals_device` call: the levels and the
+    two quantizers of each block read once (int32), its residual written
+    once (int32)."""
+    from av1dec_tpu_torch.ops.spec import itx as S
+    nbytes = blocks = 0
+    for levels, _, _, _, tsz, _ in buckets:
+        w, h = S.TX_DIMS[tsz]
+        B = levels.shape[0]
+        nbytes += 4 * (levels.size + 2 * B + B * w * h)
+        blocks += B
+    return nbytes, blocks
+
+
+def phase_host(manifest, dev):
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.container import read_ivf
+    from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.ops.spec import dequant, itx
+    from av1dec_tpu_torch.pipeline import recon
+    datas = [d for _, d in read_ivf(os.path.join(TESTDATA,
+                                                 BIG_HOST + ".ivf"))]
+    want = manifest[BIG_HOST]["frames"]
+    want_paths = manifest[BIG_HOST]["paths"]
+    n_cdef = cdef_frames(datas)
+    seen = []
+    real = recon.residuals_device
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+
+    def decode():
+        dec = Decoder(device=dev)
+        md5s = []
+        for tu in datas:
+            md5s += [f.display_md5() for f in dec.decode(tu)]
+        dec.close()
+        return md5s, dec.stats
+
+    cdef.launches = cdef.frame_launches = 0
+    recon.residuals_device = keep
+    t0 = time.perf_counter()
+    try:
+        got, stats = decode()
+    finally:
+        recon.residuals_device = real
+    t_first = time.perf_counter() - t0
+    launches = cdef.frame_launches
+    check_launches(cdef, n_cdef, "host path")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{BIG_HOST} frames differ from the manifest: "
+                             f"{bad} of {len(want)}")
+    paths = [s["recon_path"] for s in stats]
+    n_host = paths.count("host")
+    if paths != want_paths or n_host < 1:
+        raise AssertionError(f"{BIG_HOST}: recon paths {paths}, the "
+                             f"manifest's {want_paths}")
+    reasons = sorted({s["host_reason"] for s in stats if s["host_reason"]})
+    log(f"host path: {len(got)}/{len(want)} frames of {BIG_HOST} match the "
+        f"manifest; {n_host}/{len(paths)} frames on the host pixel path "
+        f"({'; '.join(reasons)}); cdef_frame launches {launches} = "
+        f"{n_cdef} frames with CDEF on, cdef_filter launches 0; first pass "
+        f"{t_first:.3f} s")
+
+    # the warm pass, with host clocks around FrameRecon's stages
+    spent = dict.fromkeys(("residuals", "postfilter", "cdef"), 0.0)
+    FR = recon.FrameRecon
+    stages = {"residuals": "_precompute_residuals",
+              "postfilter": "_postfilter", "cdef": "_cdef"}
+    real_stage = {k: getattr(FR, m) for k, m in stages.items()}
+
+    def clocked(key):
+        def call(self):
+            t = time.perf_counter()
+            try:
+                return real_stage[key](self)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return call
+    for k, m in stages.items():
+        setattr(FR, m, clocked(k))
+    t0 = time.perf_counter()
+    try:
+        _, stats = decode()
+    finally:
+        for k, m in stages.items():
+            setattr(FR, m, real_stage[k])
+    dt = time.perf_counter() - t0
+
+    def mean(path):
+        v = [s["ms"] for s in stats if s["recon_path"] == path]
+        return sum(v) / len(v)
+    host_ms = mean("host")
+    per = {k: v * 1e3 / n_host for k, v in spent.items()}
+    log(json.dumps({"fps_1080p_host": len(want) / dt, "seconds": dt,
+                    "frames": len(want), "host_frames": n_host,
+                    "host_frame_ms": host_ms,
+                    "device_frame_ms": mean("device"),
+                    "host_stage_ms_per_frame": {
+                        "residuals (B7, fetch)": per["residuals"],
+                        "block walk": host_ms - per["residuals"] -
+                        per["postfilter"],
+                        "deblock, superres, LR (NumPy)":
+                        per["postfilter"] - per["cdef"],
+                        "cdef (upload, cdef_frame, fetch)": per["cdef"]},
+                    "card": card_line()}))
+
+    # B7 on the last host frame's buckets, as FrameRecon gives them
+    buckets, bd, _ = seen[-1]
+
+    def run():
+        return recon.residuals_device(buckets, bd, dev)
+    k_ms, n_k = device_ms(run, 5)
+    out = run()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        run()  # ends in the fetch: synchronous
+    w_ms = (time.perf_counter() - t0) * 1e3 / 5
+
+    def numpy_route():
+        return [itx.inverse_transform_lanes(
+            dequant.dequant_batch(lv, tsz, q, bd, dc, ac), tsz, tt, bd)
+            for lv, q, dc, ac, tsz, tt in buckets]
+    ref = numpy_route()
+    if not all(np.array_equal(a, b) for a, b in zip(out, ref)):
+        raise AssertionError("B7 on the card != the NumPy route on the "
+                             "host frame's buckets")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        numpy_route()
+    np_ms = (time.perf_counter() - t0) * 1e3 / 3
+    nbytes, blocks = residual_work(buckets)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({"residuals": {
+        "frame": len(stats) - 1 - paths[::-1].index("host"),
+        "buckets": len(buckets), "blocks": blocks, "device_ms": k_ms,
+        "kernels": n_k, "wrapper_ms": w_ms, "numpy_ms": np_ms,
+        "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes,
+        "card": card_line()}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -617,9 +843,11 @@ def main():
         manifest = json.load(f)
 
     frame, filt = phase_kernels(dev, int_rate)
+    phase_b7(dev)
     launches = phase_main_path(manifest, dev, int_rate)
     phase_entry_point(manifest, dev)
     launches += phase_inter(manifest, dev, int_rate)
+    launches += phase_host(manifest, dev)
 
     def line(name, replaces, k, n):
         return {"name": name, "route": "cuda",

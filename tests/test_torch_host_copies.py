@@ -19,7 +19,9 @@ WHOLE = ["config.py", "ops/tables_data.py", "ops/qm_data.py",
          "ops/spec/__init__.py", "ops/spec/intra.py", "ops/spec/itx.py",
          "ops/spec/dequant.py", "ops/spec/deblock.py", "ops/spec/cdef.py",
          "ops/spec/superres.py", "ops/spec/superres_filter.py",
-         "ops/spec/lr.py", "ops/inter_tables.py", "ops/spec/inter.py"]
+         "ops/spec/lr.py", "ops/inter_tables.py", "ops/spec/inter.py",
+         "ops/gaussian_seq.py", "ops/spec/film_grain.py",
+         "pipeline/inter_pred.py"]
 
 # (port module, reference module, top-level names that may differ)
 PARTIAL = [
@@ -40,6 +42,7 @@ PARTIAL = [
     ("ops/kernels/mc.py", "ops/kernels/mc.py",
      {"_mc_list", "_mc_bucket", "run_mc"}),
     ("pipeline/device_inter.py", "pipeline/device_inter.py", {"InterPlan"}),
+    ("pipeline/recon.py", "pipeline/recon.py", {"FrameRecon"}),
 ]
 # methods of DeviceRecon copied as they are
 DR_METHODS = ["_needs_pre_cdef", "_residuals_flat_np", "_bucket_rows",
@@ -47,6 +50,10 @@ DR_METHODS = ["_needs_pre_cdef", "_residuals_flat_np", "_bucket_rows",
               "finish_host"]
 # methods of InterPlan copied as they are
 IP_METHODS = ["_pack_refs", "_list_params", "_build_lanes"]
+# methods of FrameRecon copied as they are (the block walk `run`
+# included)
+FR_METHODS = ["g", "_alloc_view", "warp_for_block", "_block_origin",
+              "_filter_type", "run"]
 
 
 def _read(pkg, rel):
@@ -129,6 +136,13 @@ def test_inter_plan_methods_copied():
     port = _methods(_read(PORT, "pipeline/device_inter.py"), "InterPlan")
     ref = _methods(_ref_src("pipeline/device_inter.py"), "InterPlan")
     for name in IP_METHODS:
+        assert ast.dump(port[name]) == ast.dump(ref[name]), name
+
+
+def test_frame_recon_methods_copied():
+    port = _methods(_read(PORT, "pipeline/recon.py"), "FrameRecon")
+    ref = _methods(_ref_src("pipeline/recon.py"), "FrameRecon")
+    for name in FR_METHODS:
         assert ast.dump(port[name]) == ast.dump(ref[name]), name
 
 

@@ -4,11 +4,15 @@
   DeviceRecon.run() on two streams (8-bit 4:2:0 with deblock + CDEF,
   and 10-bit), and those equal the committed manifest;
 - the port's Decoder reproduces the manifest's per-frame MD5s on every
-  committed small stream, intra and inter, and so does the libaom oracle;
-- an inter frame with a tool the device path cannot take (OBMC, warped
-  motion, average or distance-weighted compound) raises
-  NotImplementedError naming it, a simple inter frame decodes, and the
-  batched all-intra decode refuses inter frames.
+  committed small stream of the device path, intra and inter (those of
+  the host pixel path: tests/test_torch_recon.py), and so does the
+  libaom oracle on every committed small stream;
+- inter frames with a tool the device path cannot take (OBMC, warped
+  motion) decode on the host pixel path, equal to libaom, the device
+  path naming the tool; a frame with average or distance-weighted
+  compound raises NotImplementedError naming compound prediction; a
+  simple inter frame decodes on the device path, and the batched
+  all-intra decode refuses inter frames.
 """
 import numpy as np
 import pytest
@@ -48,10 +52,11 @@ def test_decoder_matches_manifest_on_every_small_stream(native_lib):
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.config import DecoderConfig
     man = manifest()
-    names = small_streams()
+    # the streams of the host pixel path: tests/test_torch_recon.py
+    names = [n for n in small_streams() if not man[n].get("host")]
     assert len(names) >= 16
     for name in names:
-        dec = Decoder(DecoderConfig(apply_grain=False), device="cpu")
+        dec = Decoder(DecoderConfig(), device="cpu")
         got = []
         for tu in tus(name):
             got += [f.display_md5() for f in dec.decode(tu)]
@@ -73,29 +78,60 @@ def test_manifest_matches_libaom(name):
     assert got == want
 
 
-def _raises_naming(case, tool, tmp_path, spec=None):
-    """A frame of the gen_inter_battery stream `case` (made from `spec`,
-    by default its own) with an inter tool the device path does not take
-    raises, naming the tool; the frames before it decode."""
+def _decode_case(case, tmp_path, spec=None):
+    """The gen_inter_battery stream `case` (made from `spec`, by default
+    its own): (its path, a Decoder, the frames it showed, the error that
+    stopped it or None)."""
     import gen_inter_battery as gb
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.container import read_ivf
     path = gb.gen_case(case, spec or gb.CASES[case], str(tmp_path))
     dec = Decoder(device="cpu")
-    shown = 0
-    with pytest.raises(NotImplementedError, match=tool):
+    shown, err = [], None
+    try:
         for _, tu in read_ivf(path):
-            shown += len(dec.decode(tu))
-    assert shown >= 1 and dec.stats[0]["intra"]
+            shown += dec.decode(tu)
+    except NotImplementedError as e:
+        err = e
     dec.close()
+    return path, dec, shown, err
+
+
+def _decodes_on_host(case, tool, tmp_path):
+    """Every frame of the stream `case` decodes equal to libaom; the
+    frames with `tool` take the host pixel path, the device path naming
+    the tool."""
+    import aomffi
+    path, dec, shown, err = _decode_case(case, tmp_path)
+    assert err is None
+    host = [s for s in dec.stats if s["recon_path"] == "host"]
+    assert host and any(tool in s["host_reason"] for s in host)
+    assert dec.stats[0]["intra"] and dec.stats[0]["recon_path"] == "device"
+    ora = aomffi.oracle_decode_ivf(path)
+    assert len(shown) == len(ora)
+    for f, o in zip(shown, ora):
+        for p, r in zip(f.planes, (o.y, o.u, o.v)):
+            np.testing.assert_array_equal(
+                np.asarray(p)[:r.shape[0], :r.shape[1]], r)
+
+
+def _raises_naming(case, tool, tmp_path, spec=None):
+    """A frame of the gen_inter_battery stream `case` raises, naming
+    `tool`; the frames before it decode."""
+    _, dec, shown, err = _decode_case(case, tmp_path, spec)
+    assert isinstance(err, NotImplementedError) and tool in str(err)
+    assert len(shown) >= 1 and dec.stats[0]["intra"]
 
 
 def test_inter_frame_raises_not_implemented(tmp_path):
-    _raises_naming("obmconly", "OBMC", tmp_path)
+    """OBMC frames: once refused, now on the host pixel path."""
+    _decodes_on_host("obmconly", "OBMC", tmp_path)
 
 
 def test_warped_inter_frame_raises_not_implemented(tmp_path):
-    _raises_naming("warponly", "local warped motion", tmp_path)
+    """Local warped motion frames: once refused, now on the host pixel
+    path."""
+    _decodes_on_host("warponly", "local warped motion", tmp_path)
 
 
 @pytest.mark.parametrize("case", ["c4", "c5"])

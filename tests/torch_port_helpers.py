@@ -5,7 +5,7 @@ import os
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "av1dec_tpu_torch", "testdata")
-BIG = ("bench_1080p_intra", "bench_1080p_inter")
+BIG = ("bench_1080p_intra", "bench_1080p_inter", "bench_1080p_host")
 
 
 def manifest():
@@ -14,7 +14,7 @@ def manifest():
 
 
 def small_streams():
-    """Names of the committed small streams (all but the two 1080p)."""
+    """Names of the committed small streams (all but the 1080p ones)."""
     return sorted(n for n in manifest() if n not in BIG)
 
 
@@ -25,9 +25,17 @@ def intra_streams():
 
 
 def inter_streams():
-    """The small streams with inter frames."""
+    """The small streams with inter frames, all on the device path."""
     man = manifest()
-    return [n for n in small_streams() if man[n].get("inter")]
+    return [n for n in small_streams()
+            if man[n].get("inter") and not man[n].get("host")]
+
+
+def host_streams():
+    """The small streams of the host pixel path, or with film grain
+    (`"host"` in the manifest, with each coded frame's recon path)."""
+    man = manifest()
+    return [n for n in small_streams() if man[n].get("host")]
 
 
 def stream_path(name):

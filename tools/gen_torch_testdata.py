@@ -8,11 +8,17 @@ Writes `av1dec_tpu_torch/testdata/`:
   7 inter frames; OBMC, warped motion, masked compound, inter-intra and
   global motion off), made exactly as `bench.py:ensure_inter_stream`
   makes it (seed 17);
+- `bench_1080p_host.ivf`: the same content and seed, HOST_FRAMES
+  frames at cpu-used 3 and cq-level HOST_CQ with OBMC, warped and
+  global motion and inter-intra on (HOST_TOOLS), so most inter frames
+  take the host pixel path;
 - the inter streams of `tests/test_device_inter.py` (BATTERY), made by
   `tools/gen_inter_battery.py:gen_case` with its seeds, plus
   INTER_CASES: a low-delay 10-bit stream with the exotic inter tools
   off (COMPOUND_CASES, the recipes of streams with compound blocks, are
-  not committed: see there);
+  not committed: see there), and HOST_CASES: the battery streams of
+  `tests/test_inter_bitexact.py` that the reference takes partly on its
+  host pixel path, or that carry film grain;
 - one small all-intra stream per `tests/conftest.py` SPEC_CASES entry,
   seeded with `zlib.crc32(name)` so the content is the same on every
   machine, plus EXTRA_CASES: `palette` (screen content with palette
@@ -21,13 +27,16 @@ Writes `av1dec_tpu_torch/testdata/`:
 - `manifest.json`: per stream, the per-frame MD5s of the libaom oracle
   decode: the coded planes (Y only for monochrome) at the displayed
   size, as uint8 or uint16 bytes (`av1dec_tpu_torch.api.display_md5`),
-  the file's size, and `"inter": true` for the streams with inter
-  frames.
+  the file's size, `"inter": true` for the streams with inter frames,
+  and for HOST_CASES and `bench_1080p_host` `"host": true` with
+  `"paths"`, the reference's recon path ("device" or "host") of every
+  coded frame.
 
 A stream is kept only when the JAX reference (`av1dec_tpu.api.Decoder`
-on the device path, CPU backend) takes every frame of it on its device
-path and decodes it to the oracle's MD5s; the script reports the
-streams it dropped.
+with the device path on, CPU backend) decodes it to the oracle's MD5s
+with no compound block, and takes every frame on its device path unless
+the stream is a HOST_CASES one or `bench_1080p_host`; the script
+reports the streams it dropped.
 
     JAX_PLATFORMS=cpu python tools/gen_torch_testdata.py [--skip-1080p]
         [--only NAME ...]
@@ -49,10 +58,19 @@ sys.path.insert(0, os.path.join(_REPO, "tests"))
 OUT = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
 BIG_INTER = "bench_1080p_inter"
+BIG_HOST = "bench_1080p_host"
+HOST_FRAMES = 8  # frames of BIG_HOST: 1 key frame, then inter frames
 
-# tests/test_device_inter.py: _SIMPLE, then _MIXED
+# tests/test_device_inter.py: _SIMPLE, then _MIXED (whole on the device
+# path)
 BATTERY = ["neither", "mrf3", "aq0b", "t160x96", "w136",
-           "lowdelay", "bframes", "interbd10", "intermono"]
+           "lowdelay", "bframes", "interbd10"]
+# tests/test_inter_bitexact.py streams that the reference takes partly
+# on its host pixel path (OBMC, warp, scaled references, intra block
+# copy), or whose output carries film grain
+HOST_CASES = ["warp", "warponly", "obmc", "obmconly", "grain", "grain10",
+              "scaledref", "scaledref2", "screen", "intermono", "qm_inter",
+              "sres_inter"]
 # the inter tools the device MC path does not take, off
 _SIMPLE_TOOLS = [("enable-obmc", "0"), ("enable-warped-motion", "0"),
                  ("enable-masked-comp", "0"),
@@ -162,11 +180,12 @@ def _encode_1080p(path):
     aomffi.write_ivf(path, pkts, W, H)
 
 
-def _encode_1080p_inter(path):
+def _encode_1080p_inter(path, frames=8, cpu=6, tools=_SIMPLE_TOOLS, cq=40):
     """Same content, encoder settings and seed as
-    bench.ensure_inter_stream."""
+    bench.ensure_inter_stream (by default: `frames`, `cpu`, the inter
+    `tools` options and `cq` vary it)."""
     import aomffi
-    W, H, FRAMES = 1920, 1080, 8
+    W, H, FRAMES = 1920, 1080, frames
     rng = np.random.default_rng(17)
     pad = 64
     yy, xx = np.mgrid[:H + pad, :W + pad]
@@ -178,12 +197,8 @@ def _encode_1080p_inter(path):
     base_v = (128 + 40 * np.cos(yy[::2, ::2] / 15.0)).clip(0, 255) \
         .astype(np.uint8)
     enc = aomffi.AomEncoder(
-        W, H, cpu_used=6, kf_max_dist=9999, lag=0, end_usage=3,
-        options=[("cq-level", "40"),
-                 ("enable-obmc", "0"), ("enable-warped-motion", "0"),
-                 ("enable-masked-comp", "0"),
-                 ("enable-interintra-comp", "0"),
-                 ("enable-global-motion", "0")])
+        W, H, cpu_used=cpu, kf_max_dist=9999, lag=0, end_usage=3,
+        options=[("cq-level", str(cq))] + tools)
     pkts = []
     for i in range(FRAMES):
         dy, dx = 2 * i, 3 * i
@@ -194,6 +209,18 @@ def _encode_1080p_inter(path):
     pkts += enc.flush()
     enc.close()
     aomffi.write_ivf(path, pkts, W, H)
+
+
+# BIG_HOST: the inter tools of the host pixel path on (libaom's
+# defaults), masked compound off, at cpu-used 3 (the battery's `warp`
+# and `obmc` recipes need it for the encoder to pick those tools), and
+# cq-level 44: at 36, 38, 40 and 42 the key frame has U pixels that the
+# reference's device path decodes unlike libaom (ROADMAP queue 3)
+HOST_CQ = 44
+HOST_TOOLS = [("enable-obmc", "1"), ("enable-warped-motion", "1"),
+              ("enable-global-motion", "1"),
+              ("enable-interintra-comp", "1"),
+              ("enable-masked-comp", "0")]
 
 
 def _encode_inter(name, path):
@@ -214,30 +241,47 @@ def display_md5(planes, bit_depth):
     return h.hexdigest()
 
 
-def check_stream(path):
-    """(oracle per-frame MD5s, True when the JAX reference's device path
-    decodes every frame to the oracle's pixels).  The MD5 covers the
-    coded planes (Y only for monochrome) at the displayed size; the JAX
-    decoder's planes are cropped to it."""
+def check_stream(path, host=False):
+    """(oracle per-frame MD5s, True when the JAX reference decodes every
+    frame to the oracle's pixels on its device path, or with `host` on
+    its device and host paths, and no inter block has a second
+    reference; the reference's recon path of every coded frame).  The
+    MD5 covers the coded planes (Y only for monochrome) at the displayed
+    size, with film grain as the oracle applies it; the JAX decoder's
+    planes are cropped to it."""
     import aomffi
     from av1dec_tpu.api import Decoder
+    from av1dec_tpu.bindings import NativeParser
     from av1dec_tpu.config import DecoderConfig
     from av1dec_tpu.container import read_ivf
     oracle = aomffi.oracle_decode_ivf(path)
+    parser = NativeParser()
+    compound = False
+    for _, tu in read_ivf(path):
+        for _, plans in parser.parse_tu(tu, with_plans=True):
+            if plans is not None:
+                inter = np.asarray(plans.grid("is_inter")) != 0
+                compound |= bool((np.asarray(plans.grid("ref1"))[inter]
+                                  > 0).any())
+    parser.close()
     dec = Decoder(DecoderConfig(platform="cpu"))
     frames = []
     for _, tu in read_ivf(path):
         frames += dec.decode(tu)
-    on_device = all(s["recon_path"] == "device" for s in dec.stats)
+    paths = [s["recon_path"] for s in dec.stats]
     dec.close()
-    md5s, same = [], on_device and len(frames) == len(oracle)
+    md5s = []
+    same = not compound and len(frames) == len(oracle) and \
+        (host or all(p == "device" for p in paths))
+    if compound:
+        print(f"{os.path.basename(path)}: a compound block", flush=True)
     for fr, ora in zip(frames, oracle):
         ref = [ora.y, ora.u, ora.v][:len(fr.planes)]
         same = same and all(
             np.array_equal(np.asarray(p)[:r.shape[0], :r.shape[1]], r)
             for p, r in zip(fr.planes, ref))
         md5s.append(display_md5(ref, ora.bit_depth))
-    return md5s, same
+    return md5s, same, paths
 
 
 def main():
@@ -253,30 +297,40 @@ def main():
         with open(man_path) as f:
             manifest = json.load(f)
     cases = dict(SPEC_CASES, **EXTRA_CASES)
-    names = args.only or sorted(cases) + BATTERY + sorted(INTER_CASES)
+    names = args.only or (sorted(cases) + BATTERY + sorted(INTER_CASES) +
+                          HOST_CASES)
     if not args.skip_1080p and not args.only:
-        names = names + [BIG, BIG_INTER]
+        names = names + [BIG, BIG_INTER, BIG_HOST]
     for name in names:
         path = os.path.join(OUT, name + ".ivf")
         if name == BIG:
             _encode_1080p(path)
         elif name == BIG_INTER:
             _encode_1080p_inter(path)
+        elif name == BIG_HOST:
+            _encode_1080p_inter(path, HOST_FRAMES, 3, HOST_TOOLS, HOST_CQ)
         elif name in cases:
             _encode_small(name, cases[name], path)
         else:
             _encode_inter(name, path)
-        ref, same = check_stream(path)
+        host = name in HOST_CASES or name == BIG_HOST
+        ref, same, paths = check_stream(path, host)
         size = os.path.getsize(path)
         if not same:
-            print(f"DROP {name}: JAX reference != libaom", flush=True)
+            print(f"DROP {name}: JAX reference != libaom, or a compound "
+                  f"block, or (not a host case) a frame on the host path",
+                  flush=True)
             os.remove(path)
             manifest.pop(name, None)
             continue
         manifest[name] = {"frames": ref, "bytes": size}
-        if name == BIG_INTER or name not in cases and name != BIG:
+        if name in (BIG_INTER, BIG_HOST) or name not in cases and name != BIG:
             manifest[name]["inter"] = True
-        print(f"keep {name}: {len(ref)} frames, {size} bytes", flush=True)
+        if host:
+            manifest[name]["host"] = True
+            manifest[name]["paths"] = paths
+        print(f"keep {name}: {len(ref)} frames, {size} bytes, recon paths "
+              f"{paths}", flush=True)
     with open(man_path, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
