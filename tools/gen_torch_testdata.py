@@ -215,7 +215,8 @@ def _encode_1080p_inter(path, frames=8, cpu=6, tools=_SIMPLE_TOOLS, cq=40):
 # defaults), masked compound off, at cpu-used 3 (the battery's `warp`
 # and `obmc` recipes need it for the encoder to pick those tools), and
 # cq-level 44: at 36, 38, 40 and 42 the key frame has U pixels that the
-# reference's device path decodes unlike libaom (ROADMAP queue 3)
+# reference's device Wiener restoration decodes unlike libaom (ROADMAP
+# queue 3)
 HOST_CQ = 44
 HOST_TOOLS = [("enable-obmc", "1"), ("enable-warped-motion", "1"),
               ("enable-global-motion", "1"),
