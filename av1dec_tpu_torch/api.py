@@ -20,14 +20,19 @@ is added at output (`ops/spec/film_grain.py`).  The DPB keeps each
 reference frame's planes on the host and, for a frame of the device
 path, on the device (`dev_planes`); inter frames of the device path read
 their references from the device copy, so such a frame never
-round-trips to the host as a reference.  `decode_stream_batched` is the
-batched, pipelined decode of a whole all-intra stream (the JAX package's
-`bench.py` `decode_stream_pipelined`).
+round-trips to the host as a reference.  `Decoder.save_state` and
+`load_state` checkpoint the decode at a temporal-unit boundary in a
+NumPy `.npz` archive read without pickle.  `decode_stream_batched` is
+the batched, pipelined decode of a whole all-intra stream (the JAX
+package's `bench.py` `decode_stream_pipelined`).
 """
 from __future__ import annotations
 
 import hashlib
+import io
+import json
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -85,6 +90,10 @@ class OutputFrame:
                            self.height, self.subsampling)
 
 
+# format version of Decoder.save_state blobs
+STATE_VERSION = 1
+
+
 @dataclass
 class _Slot:
     planes: List[np.ndarray]
@@ -109,6 +118,14 @@ class Decoder:
     def __init__(self, config=None, device="cuda") -> None:
         from av1dec_tpu_torch.config import DecoderConfig
         self.config = config or DecoderConfig()
+        if self.config.space_shards > 1:
+            # the JAX Decoder shards CDEF over the devices of its own
+            # process; the port's shards are ranks of a torch.distributed
+            # group, which run `parallel.sharded_cdef.cdef_sharded` SPMD
+            raise NotImplementedError(
+                "av1dec_tpu_torch: DecoderConfig.space_shards is not "
+                "taken by the port's Decoder; shard CDEF across ranks with "
+                "av1dec_tpu_torch.parallel.sharded_cdef.cdef_sharded")
         self.device = resolve_device(device)
         self._parser = NativeParser(
             threads=self.config.threads,
@@ -223,6 +240,101 @@ class Decoder:
                            spatial_id=hdr.get("spatial_id", 0),
                            metadata=hdr.get("metadata") or {},
                            width=slot.width, height=slot.height)
+
+    def save_state(self) -> bytes:
+        """Checkpoint at a temporal-unit boundary: the native
+        header-level state (sequence header, per-slot CDF contexts,
+        segment maps, motion fields, order hints), the pixel DPB and the
+        count of frames shown.  A fresh Decoder, on any device, that
+        loads the blob resumes at the next temporal unit with output
+        byte-identical to an uninterrupted decode.
+
+        The blob is an `.npz` archive: `native` (the native state as
+        uint8), `header` (JSON as uint8: format version, `shown`, each
+        slot's frame index or null, and each distinct frame's geometry,
+        grain parameters and plane dtypes) and each distinct frame's
+        planes once, as `f<k>_p<plane>`, narrowed to uint8 or uint16 by
+        bit depth.  Device copies of the references are not saved: the
+        device path uploads host references when it needs them."""
+        index, frames, slots = {}, [], []
+        for i in range(8):
+            slot = self._dpb[i]
+            if slot is None:
+                slots.append(None)
+                continue
+            if id(slot) not in index:
+                index[id(slot)] = len(frames)
+                frames.append(slot)
+            slots.append(index[id(slot)])
+        header = {"version": STATE_VERSION, "shown": self._shown,
+                  "slots": slots, "frames": []}
+        arrays = {"native": np.frombuffer(self._parser.save_state(),
+                                          np.uint8)}
+        for k, slot in enumerate(frames):
+            planes = [np.asarray(p) for p in slot.planes]
+            header["frames"].append({
+                "width": slot.width, "height": slot.height,
+                "frame_type": slot.frame_type, "grain": slot.grain,
+                "bit_depth": slot.bit_depth,
+                "subsampling": list(slot.subsampling),
+                "dtypes": [p.dtype.str for p in planes]})
+            narrow = np.uint16 if slot.bit_depth > 8 else np.uint8
+            for pl, p in enumerate(planes):
+                arrays[f"f{k}_p{pl}"] = p.astype(narrow)
+        arrays["header"] = np.frombuffer(json.dumps(header).encode(),
+                                         np.uint8)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    def load_state(self, blob: bytes) -> None:
+        """Restore a `save_state` blob.  Raises ValueError on anything
+        else (garbage, a pickle, another format version, a missing
+        entry); nothing in the blob is executed.  The decoder is left as
+        it was unless the whole blob reads.  Every restored slot holds
+        host planes only.  The native state's own sizes are trusted as
+        the native library reads them."""
+        try:
+            with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+                header = json.loads(z["header"].tobytes().decode())
+                if header["version"] != STATE_VERSION:
+                    raise ValueError(f"format version {header['version']}"
+                                     f", this decoder reads "
+                                     f"{STATE_VERSION}")
+                frames = []
+                for k, f in enumerate(header["frames"]):
+                    planes = []
+                    for pl, dt in enumerate(f["dtypes"]):
+                        dt = np.dtype(dt)
+                        if dt.kind not in "iu":
+                            raise ValueError(f"plane dtype {dt}")
+                        planes.append(z[f"f{k}_p{pl}"].astype(dt))
+                    frames.append(_Slot(
+                        planes=planes, width=int(f["width"]),
+                        height=int(f["height"]),
+                        frame_type=int(f["frame_type"]),
+                        grain=dict(f["grain"]),
+                        bit_depth=int(f["bit_depth"]),
+                        subsampling=tuple(int(v)
+                                          for v in f["subsampling"])))
+                slots = header["slots"]
+                if len(slots) != 8:
+                    raise ValueError(f"{len(slots)} DPB slots")
+                if any(k is not None and not 0 <= k < len(frames)
+                       for k in slots):
+                    raise ValueError(f"DPB slots {slots} name frames "
+                                     f"beyond the {len(frames)} saved")
+                dpb = {i: None if k is None else frames[k]
+                       for i, k in enumerate(slots)}
+                shown = int(header["shown"])
+                native = z["native"].tobytes()
+        except (ValueError, KeyError, TypeError, IndexError, EOFError,
+                OSError, zipfile.BadZipFile) as e:
+            raise ValueError(f"load_state: not a checkpoint of this "
+                             f"decoder ({type(e).__name__}: {e})") from e
+        self._parser.load_state(native)
+        self._dpb = dpb
+        self._shown = shown
 
     def close(self) -> None:
         self._parser.close()

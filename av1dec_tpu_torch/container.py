@@ -6,11 +6,21 @@ obu_length framing, OBUs usually carried with obu_has_size_field == 0.
 The decoder core consumes low-overhead temporal units (OBUs with size
 fields), so Annex-B OBUs are re-wrapped: the has_size bit is set in the
 header and a leb128 payload size inserted.
+
+GOP-parallel decode (`decode_gops_parallel`): keyframe-delimited GOPs
+decode in worker processes on the caller's device, and a dead worker's
+GOPs are decoded again by a fresh pool.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import multiprocessing
+import os
 import struct
+import tempfile
+from concurrent.futures import FIRST_EXCEPTION, ProcessPoolExecutor, wait
+from concurrent.futures.process import BrokenProcessPool
 from typing import Iterator, List, Tuple
 
 
@@ -229,3 +239,117 @@ def index_keyframes(path: str) -> List[int]:
         if is_key or i == 0:
             idx.append(i)
     return idx
+
+
+def _decode_gop(args):
+    """Decode temporal units [start, end) of `path` with a fresh Decoder
+    on `device`.  Returns (frames as (planes, bit_depth, subsampling,
+    order_hint, frame_type, width, height), the Decoder's stats, the
+    process id)."""
+    path, start, end, cfg_kw, device = args
+    # fault-injection hook of the elastic-recovery test: a worker process
+    # assigned this GOP dies hard (os._exit), once per parent process
+    kill = os.environ.get("AV1DEC_TEST_KILL_GOP")
+    if kill is not None and int(kill) == start and \
+            multiprocessing.current_process().name != "MainProcess":
+        marker = os.path.join(tempfile.gettempdir(),
+                              f"av1dec_killed_gop_{start}_{os.getppid()}")
+        if not os.path.exists(marker):
+            open(marker, "w").close()
+            os._exit(1)
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.config import DecoderConfig
+    dec = Decoder(DecoderConfig(**cfg_kw), device=device)
+    out = []
+    try:
+        for i, (_, tu) in enumerate(read_temporal_units(path)):
+            if i < start:
+                continue
+            if i >= end:
+                break
+            for fr in dec.decode(tu):
+                out.append((fr.planes, fr.bit_depth, fr.subsampling,
+                            fr.order_hint, fr.frame_type, fr.width,
+                            fr.height))
+    finally:
+        dec.close()
+    return out, dec.stats, os.getpid()
+
+
+def _run_jobs_elastic(jobs, workers, max_attempts=3):
+    """Run GOP jobs in `spawn` worker processes (CUDA cannot be forked)
+    with elastic recovery: GOPs are independent, so the GOPs of a worker
+    that died (BrokenProcessPool) go to a fresh pool, and after
+    `max_attempts` pools to the calling process.  An error raised by the
+    decode inside a worker is the stream's, not the worker's: it
+    propagates at once, unretried.  Returns the results in job order."""
+    results = {}
+    remaining = list(enumerate(jobs))
+    ctx = multiprocessing.get_context("spawn")
+    for _ in range(max_attempts):
+        if not remaining:
+            break
+        try:
+            with ProcessPoolExecutor(
+                    max_workers=min(workers, len(remaining)),
+                    mp_context=ctx) as ex:
+                futs = {ex.submit(_decode_gop, j): i for i, j in remaining}
+                pending = set(futs)
+                while pending:
+                    done, pending = wait(pending,
+                                         return_when=FIRST_EXCEPTION)
+                    for fut in done:
+                        try:
+                            results[futs[fut]] = fut.result()
+                        except BrokenProcessPool:
+                            pass  # the worker died: the GOP stays
+                        except BaseException:
+                            for f in pending:
+                                f.cancel()
+                            raise
+        except BrokenProcessPool:
+            pass  # the pool broke while the GOPs were submitted
+        remaining = [(i, j) for i, j in remaining if i not in results]
+    for i, j in remaining:  # last resort: decode in this process
+        results[i] = _decode_gop(j)
+    return [results[i] for i in range(len(jobs))]
+
+
+def decode_gops_parallel(path: str, workers: int = 2, config=None,
+                         device="cuda", stats=None):
+    """GOP-parallel decode: keyframe-delimited GOPs are independent
+    [SPEC §7.20 KEY refresh], so they decode at once in `workers` worker
+    processes, each with its own Decoder on `device` (a card unless
+    "cpu" is named).  Returns the frames in stream order (OutputFrame).
+
+    `stats`: optional list that receives, per GOP in stream order,
+    `{"gop": first temporal unit, "pid": worker process id, "frames":
+    the worker Decoder's stats}`."""
+    from av1dec_tpu_torch import resolve_device
+    from av1dec_tpu_torch.api import OutputFrame
+    from av1dec_tpu_torch.config import DecoderConfig
+
+    device = str(resolve_device(device))
+    keys = index_keyframes(path)
+    n_tus = sum(1 for _ in read_temporal_units(path))
+    bounds = keys + [n_tus]
+    cfg_kw = dataclasses.asdict(config or DecoderConfig())
+    # a whole-stream limit: applied once, at the merge below
+    max_frames = cfg_kw.pop("max_frames", 0) or 0
+    jobs = [(path, bounds[i], bounds[i + 1], cfg_kw, device)
+            for i in range(len(bounds) - 1)]
+    if workers <= 1 or len(jobs) <= 1:
+        chunks = [_decode_gop(j) for j in jobs]
+    else:
+        chunks = _run_jobs_elastic(jobs, workers)
+    out = []
+    for (_, start, _, _, _), (frames, gop_stats, pid) in zip(jobs, chunks):
+        if stats is not None:
+            stats.append({"gop": start, "pid": pid, "frames": gop_stats})
+        for planes, bd, ss, oh, ft, w, h in frames:
+            out.append(OutputFrame(planes=planes, bit_depth=bd,
+                                   subsampling=ss, order_hint=oh,
+                                   frame_type=ft, width=w, height=h))
+    if max_frames:
+        out = out[:max_frames]
+    return out

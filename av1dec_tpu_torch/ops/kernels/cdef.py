@@ -15,7 +15,10 @@ Port of `av1dec_tpu.ops.kernels.cdef`:
   the hand-written kernel (`csrc/cdef_filter.cu`), a CPU tensor to
   `_filter_plane`; nothing else is accepted.
 - `_cdef_core`: variance gating, damping shifts, per-pixel maps and the
-  three plane filters of one frame, in plain torch.
+  three plane filters of one frame, in plain torch; with `mk_pad` (the
+  column-sharded path, `parallel/sharded_cdef.py`) each plane is
+  filtered by `filter_plane` on the border that `mk_pad` builds, so a
+  CUDA shard runs `csrc/cdef_filter.cu`.
 - `cdef_frame`: the public CDEF of one frame (the function of
   `_cdef_core`).  A CUDA frame goes to the hand-written kernel
   (`csrc/cdef_frame.cu`: one launch for every plane, direction search
@@ -211,10 +214,14 @@ def _check(name, t, device, shape):
 
 
 def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
-               bd, damping_y, subx, suby):
+               bd, damping_y, subx, suby, mk_pad=None):
     """CDEF of one frame.  `planes`: tuple of [H,W] int32 plane tensors;
     *_u: per-8x8-luma-unit strengths (already gated by `active`, <=0
-    where inactive).  Returns the filtered planes (same shapes)."""
+    where inactive).  `mk_pad(plane)` optionally supplies each plane's
+    bordered [H+4, W+4] copy (the column-sharded path attaches its
+    neighbours' halo columns there); the planes then go through
+    `filter_plane`, the CUDA kernel on a card.  Returns the filtered
+    planes (same shapes)."""
     coeff_shift = bd - 8
     luma = planes[0]
     dev = luma.device
@@ -238,8 +245,14 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
             .contiguous()
 
     H, W = luma.shape
+    if mk_pad is None:
+        fp = _filter_plane
+    else:
+        def fp(plane, *args):
+            return filter_plane(plane, *args,
+                                pad=mk_pad(plane).contiguous())
     apply_y = (pri_adj > 0) | (y_sec_u > 0)
-    out = [_filter_plane(
+    out = [fp(
         luma,
         expand(pri_adj, 8, 8, H, W),
         expand(y_sec_u, 8, 8, H, W),
@@ -263,7 +276,7 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
                 expand(shift_for(uv_sec_u, damping_y - 1), ry, rx, Hc, Wc),
                 expand(apply_uv, ry, rx, Hc, Wc))
         for pl in (1, 2):
-            out.append(_filter_plane(planes[pl], *args, coeff_shift))
+            out.append(fp(planes[pl], *args, coeff_shift))
     return tuple(out)
 
 

@@ -59,9 +59,30 @@ Phases (each raises on failure, so the script exits non-zero):
    device interval of one `residuals_device` call, uploads and fetch
    included, no host cost), its kernel count, its wrapper-inclusive
    time, the NumPy route's time on the same buckets (with which it is
-   held equal) and its bytes bound.
+   held equal) and its bytes bound;
+7. state and scale-out:
+   a. checkpoint: during phase 5's checked pass, `Decoder.save_state()`
+      after TU 4; a fresh `Decoder(device="cuda")` loads it and decodes
+      TUs 4-7, all on the device path, against the manifest (blob bytes,
+      save and load ms);
+   b. GOP-parallel: `container.decode_gops_parallel(workers=2,
+      device="cuda")` on the first 4 TUs (4 GOPs) of the 1080p all-intra
+      stream against the manifest (wall fps, each worker's frame ms);
+   c. column-sharded CDEF: one launch of 4 ranks of
+      `av1dec_tpu_torch.parallel.worker` on the card (gloo) runs
+      `cdef_sharded` on phase 3's frame 0 (deblocked planes, real
+      strengths) at n_space 2 and 4, each byte-equal to `cdef_frame` on
+      the whole frame, 3 `cdef_filter` launches per rank per call
+      (per-rank kernel device ms, halo-exchange ms and bound);
+   d. frame-sharded decode: in the same launch, `decode_frames_sharded`
+      of frames 0-1 at data=2 against the manifest;
+   e. NCCL: one rank whose backend the default rule picks (NCCL: it has
+      a card of its own) runs c at n_space 1 (fill-only halos) through
+      the CUDA-tensor path of the collectives.
 
-The `launches` of the `{"kernels": [...]}` line count phases 3, 5 and 6.
+The `launches` of the `{"kernels": [...]}` line count phases 3, 5 and 6
+for `cdef_frame`, and phase 7's checked calls (counted in each worker
+process) for `cdef_filter`.
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -81,6 +102,11 @@ BIG = "bench_1080p_intra"
 BIG_INTER = "bench_1080p_inter"
 BIG_HOST = "bench_1080p_host"
 INTER_FRAMES = 7  # inter frames of BIG_INTER (after its key frame)
+CHECKPOINT_TU = 4  # phase 7a saves the decode of BIG_INTER before it
+GOP_TUS = 4  # phase 7b: the first TUs (one GOP each) of BIG
+SCALE_RANKS = 4  # phase 7c-d: gloo ranks on the one card
+N_SPACE = (2, 4)  # phase 7c: space shards of sharded CDEF
+TIME_ITERS = 20  # phase 7c: timed sharded CDEF calls per rank
 # H100 SXM data sheet: HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
 # int32 add, compare, min/max, shift and multiply-add results per clock
@@ -485,7 +511,7 @@ def phase_main_path(manifest, dev, int_rate):
     planes, *gates, bd, damping, sx, sy = seen[0]
     time_frame(cdef, planes, gates, bd, damping, sx, sy, int_rate,
                f"{BIG} frame 0 (real strengths)")
-    return launches
+    return launches, seen[0]
 
 
 def phase_entry_point(manifest, dev):
@@ -551,17 +577,23 @@ def phase_inter(manifest, dev, int_rate):
     want = manifest[BIG_INTER]["frames"]
     n_cdef = cdef_frames(datas)
 
-    def decode():
+    saved = {}
+
+    def decode(save_at=None):
         dec = Decoder(DecoderConfig(apply_grain=False), device=dev)
         md5s = []
-        for tu in datas:
+        for i, tu in enumerate(datas):
+            if i == save_at:
+                t = time.perf_counter()
+                saved["blob"] = dec.save_state()
+                saved["save_ms"] = (time.perf_counter() - t) * 1e3
             md5s += [f.display_md5() for f in dec.decode(tu)]
         dec.close()
         return md5s, dec.stats
 
     cdef.launches = cdef.frame_launches = 0
     t0 = time.perf_counter()
-    got, stats = decode()
+    got, stats = decode(save_at=CHECKPOINT_TU)
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
     check_launches(cdef, n_cdef, "inter path")
@@ -579,6 +611,7 @@ def phase_inter(manifest, dev, int_rate):
         f"device path (MC pass and scan under sync debug mode 'error'); "
         f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
         f"cdef_filter launches 0; first pass {t_first:.3f} s")
+    phase_checkpoint(datas, want, saved, dev)
 
     t0 = time.perf_counter()
     _, stats = decode()
@@ -622,6 +655,35 @@ def phase_inter(manifest, dev, int_rate):
         "bound_ms": b, "bound_by": by, "bytes": nbytes, "int32_ops": ops,
         "card": card_line()}}))
     return launches
+
+
+def phase_checkpoint(datas, want, saved, dev):
+    """7a: a fresh Decoder resumes phase 5's checked pass from the blob
+    saved before TU CHECKPOINT_TU."""
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.config import DecoderConfig
+    t0 = time.perf_counter()
+    blob = saved["blob"]
+    dec = Decoder(DecoderConfig(apply_grain=False), device=dev)
+    t = time.perf_counter()
+    dec.load_state(blob)
+    load_ms = (time.perf_counter() - t) * 1e3
+    got = []
+    for tu in datas[CHECKPOINT_TU:]:
+        got += [f.display_md5() for f in dec.decode(tu)]
+    dec.close()
+    paths = [s["recon_path"] for s in dec.stats]
+    if got != want[CHECKPOINT_TU:] or set(paths) != {"device"}:
+        same = [g == w for g, w in zip(got, want[CHECKPOINT_TU:])]
+        raise AssertionError(f"resumed {BIG_INTER} TUs {CHECKPOINT_TU}-"
+                             f"{len(datas) - 1}: frames equal to the "
+                             f"manifest {same}, recon paths {paths}")
+    log(json.dumps({"checkpoint": {
+        "stream": BIG_INTER, "saved_before_tu": CHECKPOINT_TU,
+        "resumed_frames": len(got), "all_device_path": True,
+        "blob_bytes": len(blob), "save_ms": saved["save_ms"],
+        "load_ms": load_ms, "resume_s": time.perf_counter() - t0,
+        "card": card_line()}}))
 
 
 def phase_b7(dev):
@@ -821,6 +883,148 @@ def phase_host(manifest, dev):
     return launches
 
 
+def shard_work(planes, gates, bd, subx, suby, n, s):
+    """(bytes, int32 operations) of the 3 `cdef_filter` launches of space
+    shard `s` of `n`: each shard plane, its 6 maps and its bordered pad
+    read once and its output written once; the taps that are on in each
+    of the shard's units with something to apply."""
+    from av1dec_tpu_torch.ops.kernels.cdef import _directions, _ilog2
+    y_pri, y_sec, uv_pri, uv_sec = gates
+    _, var = _directions(planes[0], bd)
+    pri_adj = torch.where((y_pri > 0) & (var != 0),
+                          (y_pri * (4 + _ilog2(var >> 6)) + 8) >> 4, 0)
+    uw = y_pri.shape[1] // n
+    cols = slice(s * uw, (s + 1) * uw)
+    ops = filter_ops(((pri_adj > 0) | (y_sec > 0))[:, cols],
+                     (pri_adj > 0)[:, cols], (y_sec > 0)[:, cols], 64)
+    if len(planes) > 1:
+        ops += 2 * filter_ops(((uv_pri > 0) | (uv_sec > 0))[:, cols],
+                              (uv_pri > 0)[:, cols], (uv_sec > 0)[:, cols],
+                              64 >> (subx + suby))
+    nbytes = 0
+    for p in planes:
+        H, W = p.shape[0], p.shape[1] // n
+        nbytes += 4 * (H * W * 8 + (H + 4) * (W + 4))
+    return nbytes, ops
+
+
+def phase_scale_out(manifest, dev, int_rate, frame0):
+    """7b-e; returns the `cdef_filter` launches of the checked calls."""
+    import tempfile
+
+    from av1dec_tpu_torch.container import decode_gops_parallel, read_ivf
+    from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.parallel.worker import (launch, plane_md5s,
+                                                  save_cdef_input)
+    big = os.path.join(TESTDATA, BIG + ".ivf")
+    want = manifest[BIG]["frames"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # b: GOP-parallel on the first GOP_TUS key frames
+        path = os.path.join(tmp, "gops.ivf")
+        with open(big, "rb") as f:
+            head = f.read(32)
+        with open(path, "wb") as f:
+            f.write(head)
+            for i, (pts, tu) in enumerate(read_ivf(big)):
+                if i == GOP_TUS:
+                    break
+                f.write(len(tu).to_bytes(4, "little") +
+                        pts.to_bytes(8, "little") + tu)
+        stats = []
+        t0 = time.perf_counter()
+        frames = decode_gops_parallel(path, workers=2, device=dev,
+                                      stats=stats)
+        dt = time.perf_counter() - t0
+        got = [f.display_md5() for f in frames]
+        if got != want[:GOP_TUS] or len(stats) != GOP_TUS:
+            raise AssertionError(f"GOP-parallel {BIG}: {len(got)} frames, "
+                                 f"{len(stats)} GOPs, equal to the "
+                                 f"manifest: {got == want[:GOP_TUS]}")
+        per_worker = {}
+        for st in stats:
+            per_worker.setdefault(st["pid"], []).extend(
+                r["ms"] for r in st["frames"])
+        log(json.dumps({"gop_parallel": {
+            "stream": f"{BIG} TUs 0-{GOP_TUS - 1}", "gops": len(stats),
+            "workers": 2, "fps": len(got) / dt, "seconds": dt,
+            "worker_frame_ms": list(per_worker.values()),
+            "card": card_line()}}))
+
+        # c, d: one launch of SCALE_RANKS gloo ranks on the card
+        planes, *gates, bd, damping, sx, sy = frame0
+        npz = os.path.join(tmp, "frame0.npz")
+        save_cdef_input(npz, planes, tuple(gates) + (damping, sx, sy), bd)
+        whole = plane_md5s(cdef.cdef_frame(planes, *gates, bd, damping, sx,
+                                           sy))
+        t0 = time.perf_counter()
+        res = launch(SCALE_RANKS, os.path.join(tmp, "ranks"),
+                     ["--cdef", npz, "--n-space", *N_SPACE, "--time",
+                      TIME_ITERS, "--frames", big, "--frames-data", 2],
+                     backend="gloo", device="cuda", timeout=400)
+        t_launch = time.perf_counter() - t0
+        launches = 0
+        rows = []
+        for rec in res:
+            if rec["all_reduce"] != SCALE_RANKS * (SCALE_RANKS - 1) // 2:
+                raise AssertionError(f"rank {rec['rank']}: all_reduce "
+                                     f"{rec['all_reduce']}")
+            if rec["frames"] != want[:2]:
+                raise AssertionError(f"rank {rec['rank']}: sharded frames "
+                                     f"differ from the manifest")
+            for n in N_SPACE:
+                c = rec["cdef"][str(n)]
+                if c["md5"] != whole or c["launches"] != 3:
+                    raise AssertionError(
+                        f"rank {rec['rank']} n_space {n}: sharded CDEF "
+                        f"equal to cdef_frame: {c['md5'] == whole}, "
+                        f"cdef_filter launches {c['launches']} (3 "
+                        f"expected)")
+                launches += c["launches"]
+                nbytes, ops = shard_work(planes, gates, bd, sx, sy, n,
+                                         c["space_index"])
+                b, by = bound(nbytes, ops, int_rate)
+                rows.append({"rank": rec["rank"], "n_space": n,
+                             "shard_widths": c["shard_widths"],
+                             "kernel_ms": c["kernel_ms"],
+                             "kernels_per_call": c["kernels_per_call"],
+                             "halo_ms": c["halo_ms"], "bound_ms": b,
+                             "bound_by": by,
+                             "share_of_bound": b / c["kernel_ms"]})
+        log(f"sharded CDEF: {SCALE_RANKS} gloo ranks on the card, n_space "
+            f"{' and '.join(map(str, N_SPACE))}: every rank byte-equal to "
+            f"cdef_frame on the whole frame, 3 cdef_filter launches per "
+            f"rank per call ({launches}); sharded frames 0-1 at data=2 "
+            f"match the manifest on every rank (frames "
+            f"{res[0]['frames_s']:.3f} s on rank 0); launch "
+            f"{t_launch:.3f} s")
+        log(json.dumps({"sharded_cdef": rows, "card": card_line()}))
+
+        # e: the NCCL path, one rank with a card of its own
+        t0 = time.perf_counter()
+        res = launch(1, os.path.join(tmp, "nccl"),
+                     ["--cdef", npz, "--n-space", 1], backend=None,
+                     device="cuda", timeout=200)[0]
+        c = res["cdef"]["1"]
+        if res["backend"] != "nccl" or res["all_reduce"] != 0 or \
+                c["md5"] != whole or c["launches"] != 3:
+            raise AssertionError(f"NCCL rank: backend {res['backend']}, "
+                                 f"equal to cdef_frame {c['md5'] == whole}"
+                                 f", cdef_filter launches {c['launches']}")
+        launches += c["launches"]
+        log(f"NCCL: world-size-1 group (backend picked: {res['backend']}), "
+            f"sharded CDEF at n_space 1 byte-equal to cdef_frame, 3 "
+            f"cdef_filter launches; launch {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def timed_phase(name, fn, *args):
+    """fn(*args), with its wall seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -842,12 +1046,16 @@ def main():
     with open(os.path.join(TESTDATA, "manifest.json")) as f:
         manifest = json.load(f)
 
-    frame, filt = phase_kernels(dev, int_rate)
-    phase_b7(dev)
-    launches = phase_main_path(manifest, dev, int_rate)
-    phase_entry_point(manifest, dev)
-    launches += phase_inter(manifest, dev, int_rate)
-    launches += phase_host(manifest, dev)
+    frame, filt = timed_phase("2 (kernels)", phase_kernels, dev, int_rate)
+    timed_phase("2 (B7)", phase_b7, dev)
+    launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
+                                   int_rate)
+    timed_phase("4", phase_entry_point, manifest, dev)
+    launches += timed_phase("5 (with 7a)", phase_inter, manifest, dev,
+                            int_rate)
+    launches += timed_phase("6", phase_host, manifest, dev)
+    filter_launches = timed_phase("7b-e", phase_scale_out, manifest, dev,
+                                  int_rate, frame0)
 
     def line(name, replaces, k, n):
         return {"name": name, "route": "cuda",
@@ -859,7 +1067,8 @@ def main():
     log(json.dumps({"kernels": [
         line("cdef_frame", "av1dec_tpu/ops/kernels/cdef.py:342", frame,
              launches),
-        line("cdef_filter", "av1dec_tpu/ops/kernels/cdef.py:342", filt, 0),
+        line("cdef_filter", "av1dec_tpu/ops/kernels/cdef.py:342", filt,
+             filter_launches),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ WHOLE = ["config.py", "ops/tables_data.py", "ops/qm_data.py",
 
 # (port module, reference module, top-level names that may differ)
 PARTIAL = [
-    ("container.py", "container.py", set()),
+    # the GOP workers differ: they run on the caller's device (the JAX
+    # package's run on its host path), in `spawn` processes (CUDA cannot
+    # be forked), and only a dead worker's GOP is retried (a decode
+    # error propagates)
+    ("container.py", "container.py",
+     {"_decode_gop", "_run_jobs_elastic", "decode_gops_parallel"}),
     ("bindings.py", "bindings.py", {"_LIB_PATH", "_load"}),
     ("pipeline/wavefront.py", "pipeline/wavefront.py",
      {"build_schedule_fast"}),

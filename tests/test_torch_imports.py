@@ -63,9 +63,8 @@ def test_port_imports_without_jax_or_reference():
     assert r.stdout.strip() == f"ok {len(mods)}"
 
 
-@pytest.mark.parametrize("path", _port_files(),
-                         ids=lambda p: os.path.relpath(p, _REPO))
-def test_no_jax_or_reference_imports_in_source(path):
+def _imports(path):
+    """(line, top-level module) of every import statement of a file."""
     with open(path) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):
@@ -75,9 +74,24 @@ def test_no_jax_or_reference_imports_in_source(path):
         elif isinstance(node, ast.ImportFrom):
             names = [node.module or ""]
         for n in names:
-            top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "av1dec_tpu"), \
-                f"{path}:{node.lineno} imports {n}"
+            yield node.lineno, n.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, _REPO))
+def test_no_jax_or_reference_imports_in_source(path):
+    for line, top in _imports(path):
+        assert top not in ("jax", "jaxlib", "av1dec_tpu"), \
+            f"{path}:{line} imports {top}"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, _REPO))
+def test_no_pickle_imports_in_source(path):
+    """Checkpoints are read without pickle (`Decoder.load_state`)."""
+    for line, top in _imports(path):
+        assert top not in ("pickle", "cPickle", "dill"), \
+            f"{path}:{line} imports {top}"
 
 
 def test_entry_points_need_a_card_unless_cpu_is_named():
@@ -95,6 +109,26 @@ def test_entry_points_need_a_card_unless_cpu_is_named():
         resolve_device("meta")
     assert resolve_device("cpu").type == "cpu"
     Decoder(device="cpu").close()
+
+
+def test_scale_out_needs_a_card_or_a_named_backend(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from torch_port_helpers import stream_path
+    from av1dec_tpu_torch.container import decode_gops_parallel
+    from av1dec_tpu_torch.parallel import dist
+    path = stream_path("gops")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_gops_parallel(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist.decode_my_gops(path)
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        dist.initialize_distributed("localhost:1", 2, 0)
+    for name in ("AV1DEC_COORDINATOR", "AV1DEC_NUM_PROCS",
+                 "AV1DEC_PROC_ID", "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
+        dist.initialize_distributed(backend="gloo")
 
 
 def test_cli_needs_a_card_unless_cpu_is_named(tmp_path):

@@ -19,6 +19,9 @@ Writes `av1dec_tpu_torch/testdata/`:
   not committed: see there), and HOST_CASES: the battery streams of
   `tests/test_inter_bitexact.py` that the reference takes partly on its
   host pixel path, or that carry film grain;
+- `gops.ivf`: the 12-frame stream of three keyframe-delimited GOPs
+  that `tests/test_gop_parallel.py` makes (GOP_CASE), for the port's
+  GOP-parallel decode;
 - one small all-intra stream per `tests/conftest.py` SPEC_CASES entry,
   seeded with `zlib.crc32(name)` so the content is the same on every
   machine, plus EXTRA_CASES: `palette` (screen content with palette
@@ -28,14 +31,14 @@ Writes `av1dec_tpu_torch/testdata/`:
   decode: the coded planes (Y only for monochrome) at the displayed
   size, as uint8 or uint16 bytes (`av1dec_tpu_torch.api.display_md5`),
   the file's size, `"inter": true` for the streams with inter frames,
-  and for HOST_CASES and `bench_1080p_host` `"host": true` with
+  and for HOST_CASES, `bench_1080p_host` and `gops` `"host": true` with
   `"paths"`, the reference's recon path ("device" or "host") of every
   coded frame.
 
 A stream is kept only when the JAX reference (`av1dec_tpu.api.Decoder`
 with the device path on, CPU backend) decodes it to the oracle's MD5s
 with no compound block, and takes every frame on its device path unless
-the stream is a HOST_CASES one or `bench_1080p_host`; the script
+the stream is a HOST_CASES one, `bench_1080p_host` or `gops`; the script
 reports the streams it dropped.
 
     JAX_PLATFORMS=cpu python tools/gen_torch_testdata.py [--skip-1080p]
@@ -94,6 +97,28 @@ COMPOUND_CASES = {
                                       ("auto-alt-ref", "1")])
     for name, dist in (("c4", "1"), ("c5", "0"))
 }
+
+# tests/test_gop_parallel.py's stream: 128x96, key frames at TUs 0, 4
+# and 8 (kf_max_dist 4), synthetic frames seeded with 9; libaom's
+# default tools, so one inter frame takes the host pixel path (its
+# manifest entry records the paths, as HOST_CASES')
+GOP_CASE = "gops"
+
+
+def _encode_gops(path):
+    """The GOP stream exactly as tests/test_gop_parallel.py makes it."""
+    import aomffi
+    from conftest import _synth_frame
+    rng = np.random.default_rng(9)
+    enc = aomffi.AomEncoder(128, 96, cpu_used=9, kf_max_dist=4, lag=0,
+                            bitrate_kbps=300)
+    pkts = []
+    for t in range(12):
+        pkts += enc.encode(*_synth_frame(128, 96, t, rng), pts=t)
+    pkts += enc.flush()
+    enc.close()
+    aomffi.write_ivf(path, pkts, 128, 96)
+
 
 # extra case beside SPEC_CASES: few-colour screen content, so the scan
 # sees palette lanes (aomenc only searches palette for screen content)
@@ -299,7 +324,7 @@ def main():
             manifest = json.load(f)
     cases = dict(SPEC_CASES, **EXTRA_CASES)
     names = args.only or (sorted(cases) + BATTERY + sorted(INTER_CASES) +
-                          HOST_CASES)
+                          HOST_CASES + [GOP_CASE])
     if not args.skip_1080p and not args.only:
         names = names + [BIG, BIG_INTER, BIG_HOST]
     for name in names:
@@ -310,11 +335,13 @@ def main():
             _encode_1080p_inter(path)
         elif name == BIG_HOST:
             _encode_1080p_inter(path, HOST_FRAMES, 3, HOST_TOOLS, HOST_CQ)
+        elif name == GOP_CASE:
+            _encode_gops(path)
         elif name in cases:
             _encode_small(name, cases[name], path)
         else:
             _encode_inter(name, path)
-        host = name in HOST_CASES or name == BIG_HOST
+        host = name in HOST_CASES or name in (BIG_HOST, GOP_CASE)
         ref, same, paths = check_stream(path, host)
         size = os.path.getsize(path)
         if not same:
