@@ -87,21 +87,22 @@ def main(argv=None):
     t0 = time.monotonic()
     n = 0
     total_md5 = hashlib.md5()
-    dec = Decoder(config, device=args.device)
+    dec = None
+    if args.gop_workers > 1:
+        gops = []
+        frames = decode_gops_parallel(
+            args.input, workers=args.gop_workers, config=config,
+            device=args.device, stats=gops)
+        stats = [rec for gop in gops for rec in gop["frames"]]
+    else:
+        dec = Decoder(config, device=args.device)
+        stats = dec.stats
+        frames = (fr for _, tu in read_temporal_units(args.input)
+                  for fr in dec.decode(tu))
     out_f = open(args.output, "wb") if args.output else None
     y4m_f = open(args.y4m, "wb") if args.y4m else None
-
-    def frame_stream():
-        if args.gop_workers > 1:
-            yield from decode_gops_parallel(
-                args.input, workers=args.gop_workers, config=config,
-                device=args.device)
-            return
-        for _, tu in read_temporal_units(args.input):
-            yield from dec.decode(tu)
-
     try:
-        for frame in frame_stream():
+        for frame in frames:
             raw = _plane_bytes(frame)
             if args.frame_md5:
                 print(f"frame {n}: {hashlib.md5(raw).hexdigest()}")
@@ -118,7 +119,8 @@ def main(argv=None):
             if args.limit and n >= args.limit:
                 break
     finally:
-        dec.close()
+        if dec is not None:
+            dec.close()
         if out_f:
             out_f.close()
         if y4m_f:
@@ -126,7 +128,7 @@ def main(argv=None):
     dt = time.monotonic() - t0
     if args.stats:
         import json
-        for rec in dec.stats:
+        for rec in stats:
             print(json.dumps(rec), file=sys.stderr)
     if args.md5:
         print(total_md5.hexdigest())

@@ -276,17 +276,22 @@ def _decode_gop(args):
     return out, dec.stats, os.getpid()
 
 
-def _run_jobs_elastic(jobs, workers, max_attempts=3):
+# worker pools a GOP whose worker died is given, before the calling
+# process decodes it itself
+POOL_ATTEMPTS = 3
+
+
+def _run_jobs_elastic(jobs, workers):
     """Run GOP jobs in `spawn` worker processes (CUDA cannot be forked)
     with elastic recovery: GOPs are independent, so the GOPs of a worker
     that died (BrokenProcessPool) go to a fresh pool, and after
-    `max_attempts` pools to the calling process.  An error raised by the
+    POOL_ATTEMPTS pools to the calling process.  An error raised by the
     decode inside a worker is the stream's, not the worker's: it
     propagates at once, unretried.  Returns the results in job order."""
     results = {}
     remaining = list(enumerate(jobs))
     ctx = multiprocessing.get_context("spawn")
-    for _ in range(max_attempts):
+    for _ in range(POOL_ATTEMPTS):
         if not remaining:
             break
         try:
@@ -315,6 +320,20 @@ def _run_jobs_elastic(jobs, workers, max_attempts=3):
     return [results[i] for i in range(len(jobs))]
 
 
+def _gop_jobs(path, config, device):
+    """(jobs, max_frames): a `_decode_gop` job per keyframe-delimited GOP
+    of `path`, in stream order, decoding with `config` on `device`; and
+    the config's whole-stream frame limit, which the jobs leave out (the
+    caller applies it once, to the merged frames)."""
+    from av1dec_tpu_torch.config import DecoderConfig
+    keys = index_keyframes(path)
+    bounds = keys + [sum(1 for _ in read_temporal_units(path))]
+    cfg_kw = dataclasses.asdict(config or DecoderConfig())
+    max_frames = cfg_kw.pop("max_frames", 0) or 0
+    return ([(path, s, e, cfg_kw, device)
+             for s, e in zip(bounds, bounds[1:])], max_frames)
+
+
 def decode_gops_parallel(path: str, workers: int = 2, config=None,
                          device="cuda", stats=None):
     """GOP-parallel decode: keyframe-delimited GOPs are independent
@@ -327,17 +346,8 @@ def decode_gops_parallel(path: str, workers: int = 2, config=None,
     the worker Decoder's stats}`."""
     from av1dec_tpu_torch import resolve_device
     from av1dec_tpu_torch.api import OutputFrame
-    from av1dec_tpu_torch.config import DecoderConfig
 
-    device = str(resolve_device(device))
-    keys = index_keyframes(path)
-    n_tus = sum(1 for _ in read_temporal_units(path))
-    bounds = keys + [n_tus]
-    cfg_kw = dataclasses.asdict(config or DecoderConfig())
-    # a whole-stream limit: applied once, at the merge below
-    max_frames = cfg_kw.pop("max_frames", 0) or 0
-    jobs = [(path, bounds[i], bounds[i + 1], cfg_kw, device)
-            for i in range(len(bounds) - 1)]
+    jobs, max_frames = _gop_jobs(path, config, str(resolve_device(device)))
     if workers <= 1 or len(jobs) <= 1:
         chunks = [_decode_gop(j) for j in jobs]
     else:

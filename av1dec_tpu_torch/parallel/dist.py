@@ -8,7 +8,6 @@ crosses between ranks (`my_gop_shard`, `decode_my_gops`).
 """
 from __future__ import annotations
 
-import dataclasses
 import datetime
 import os
 
@@ -77,16 +76,22 @@ def global_mesh(axis: str = "data"):
     return make_mesh(n, data=n if axis == "data" else 1)
 
 
+def wire_device(group, device):
+    """Where tensors cross between the ranks of `group` (None: the whole
+    group): on `device` under NCCL, through the CPU otherwise (gloo)."""
+    import torch
+    import torch.distributed as dist
+    return torch.device(device) if dist.get_backend(group) == "nccl" \
+        else torch.device("cpu")
+
+
 def my_gop_shard(path: str):
     """(gop_bounds, mine): the keyframe-delimited GOP bounds of `path`
     and the ones this rank owns (round-robin by rank)."""
     import torch.distributed as dist
 
-    from av1dec_tpu_torch.container import (index_keyframes,
-                                            read_temporal_units)
-    keys = index_keyframes(path)
-    n_tus = sum(1 for _ in read_temporal_units(path))
-    bounds = [(s, e) for s, e in zip(keys, keys[1:] + [n_tus])]
+    from av1dec_tpu_torch.container import _gop_jobs
+    bounds = [(s, e) for _, s, e, _, _ in _gop_jobs(path, None, None)[0]]
     rank, n = dist.get_rank(), dist.get_world_size()
     mine = [b for i, b in enumerate(bounds) if i % n == rank]
     return bounds, mine
@@ -96,13 +101,11 @@ def decode_my_gops(path: str, config=None, device="cuda"):
     """Decode this rank's GOP shard on `device` (a card unless "cpu" is
     named); returns [(gop index, frames)], frames as
     `container._decode_gop` gives them."""
+    import torch.distributed as dist
+
     from av1dec_tpu_torch import resolve_device
-    from av1dec_tpu_torch.config import DecoderConfig
-    from av1dec_tpu_torch.container import _decode_gop
-    device = str(resolve_device(device))
-    bounds, mine = my_gop_shard(path)
-    cfg_kw = dataclasses.asdict(config or DecoderConfig())
-    cfg_kw.pop("max_frames", None)
-    return [(bounds.index((s, e)),
-             _decode_gop((path, s, e, cfg_kw, device))[0])
-            for s, e in mine]
+    from av1dec_tpu_torch.container import _decode_gop, _gop_jobs
+    jobs, _ = _gop_jobs(path, config, str(resolve_device(device)))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    return [(i, _decode_gop(j)[0]) for i, j in enumerate(jobs)
+            if i % n == rank]

@@ -17,9 +17,10 @@ def _from_neighbours(block, halo, mesh):
     """(columns from the left neighbour, from the right neighbour), each
     [H, halo] on the block's device, or None at an end of the axis."""
     import torch.distributed as dist
+
+    from av1dec_tpu_torch.parallel.dist import wire_device
     i, ranks, group = mesh.space_index, mesh.space_ranks, mesh.space_group
-    wire = block.device if dist.get_backend(group) == "nccl" \
-        else torch.device("cpu")
+    wire = wire_device(group, block.device)
     ops, got = [], []
     for peer, edge in ((i - 1, block[:, :halo]), (i + 1, block[:, -halo:])):
         if not 0 <= peer < len(ranks):

@@ -33,12 +33,11 @@ def _gather_cols(shard, mesh):
     """The whole plane from every rank's column shard, on the shard's
     device (through CPU tensors under gloo)."""
     import torch.distributed as dist
-    group = mesh.space_group
-    wire = shard.device if dist.get_backend(group) == "nccl" \
-        else torch.device("cpu")
-    part = shard.to(wire).contiguous()
+
+    from av1dec_tpu_torch.parallel.dist import wire_device
+    part = shard.to(wire_device(mesh.space_group, shard.device)).contiguous()
     parts = [torch.empty_like(part) for _ in range(mesh.space)]
-    dist.all_gather(parts, part, group=group)
+    dist.all_gather(parts, part, group=mesh.space_group)
     return torch.cat(parts, dim=1).to(shard.device)
 
 

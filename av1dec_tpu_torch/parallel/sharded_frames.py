@@ -33,6 +33,7 @@ def decode_frames_sharded(drs, mesh, axis="data", device="cuda"):
     import torch.distributed as dist
 
     from av1dec_tpu_torch import resolve_device
+    from av1dec_tpu_torch.parallel.dist import wire_device
     dev = resolve_device(device)
     K = mesh.size(axis)
     if len(drs) != K:
@@ -43,8 +44,7 @@ def decode_frames_sharded(drs, mesh, axis="data", device="cuda"):
                          "geometry")
     mine = drs[mesh.index(axis)].run(dev)
     group = mesh.group(axis)
-    wire = torch.device("cuda", torch.cuda.current_device()) \
-        if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    wire = wire_device(group, dev)
     out = [[] for _ in range(K)]
     for p in mine:
         part = torch.as_tensor(np.ascontiguousarray(p, np.int32)).to(wire)

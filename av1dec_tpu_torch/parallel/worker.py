@@ -3,7 +3,7 @@
     python -m av1dec_tpu_torch.parallel.worker --coordinator HOST:PORT \\
         --world N --rank R [--backend gloo|nccl] --device cpu|cuda \\
         --out DIR [--gops STREAM] [--cdef PLANES.npz --n-space 2 4] \\
-        [--frames STREAM --frames-data K] [--time ITERS]
+        [--frames STREAM] [--time ITERS]
 
 Joins the group (`dist.initialize_distributed`; without `--backend`,
 its rule: NCCL when every rank has a card) and runs, in order:
@@ -18,12 +18,16 @@ its rule: NCCL when every rank has a card) and runs, in order:
   `gates_<i>` for the four strength maps, and `meta` = [bd, damping,
   subx, suby], as `save_cdef_input` writes it) over a mesh of each
   `--n-space` size (data = N / n_space), as MD5s of each whole output
-  plane's int32 bytes, with the `cdef_filter` launches of that call;
-  with `--time ITERS` on a card, also the mean device ms of the
-  `cdef_filter` kernels and the mean host ms of the halo exchanges per
-  call over ITERS more calls;
-- `--frames`: `decode_frames_sharded` of STREAM's first K coded frames
-  over a mesh with data = K, as display MD5s per frame.
+  plane's int32 bytes, with the `cdef_filter` launches of that call and
+  the largest difference of each of its `filter_plane` outputs from the
+  plain `_filter_plane` on the same shard, maps and pad; with `--time
+  ITERS` on a card, also the mean device ms of the `cdef_filter`
+  kernels and the mean host ms of the halo exchanges per call over
+  ITERS more calls, and the ms of the plain version on the shards (the
+  ranks take turns, so that each has the card to itself);
+- `--frames`: `decode_frames_sharded` of STREAM's first FRAMES_DATA
+  coded frames over a mesh with data = FRAMES_DATA, as display MD5s per
+  frame.
 Writes DIR/rank<R>.json.  `launch` starts N such processes and collects
 their results.
 """
@@ -43,6 +47,10 @@ import numpy as np
 
 # shape of the block of the halo exchange check
 HALO_BLOCK = (3, 4)
+# ranks on the data axis of the sharded frames run, one frame each
+FRAMES_DATA = 2
+# calls of the plain version timed per rank
+PLAIN_ITERS = 3
 
 
 def halo_block(rank):
@@ -97,13 +105,59 @@ def _cdef_runs(args, dev, res):
                              f"{args.world} ranks")
         mesh = make_mesh(data=args.world // n_space)
         before = cdef.launches
-        out = sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
+        out, calls = _against_plain(lambda: sharded_cdef.cdef_sharded(
+            planes, gates, bd, mesh))
         rec = {"md5": plane_md5s(out), "launches": cdef.launches - before,
+               "max_abs_err": max(err for _, _, err in calls),
                "shard_widths": [p.shape[1] // n_space for p in planes],
                "space_index": mesh.space_index}
         if args.time and dev.type == "cuda":
             rec.update(_time_cdef(planes, gates, bd, mesh, args.time))
+            rec["plain_ms"] = _plain_ms(calls)
         res["cdef"][str(n_space)] = rec
+
+
+def _against_plain(fn):
+    """fn(), with each `filter_plane` call of it held against the plain
+    `_filter_plane` on the same inputs (plane, maps, pad).  Returns
+    (fn's result, [(arguments, pad, max abs difference)] per call)."""
+    from av1dec_tpu_torch.ops.kernels import cdef
+    real, calls = cdef.filter_plane, []
+
+    def held(*args, pad=None):
+        got = real(*args, pad=pad)
+        ref = cdef._filter_plane(*args, pad=pad)
+        calls.append((args, pad, int((got - ref).abs().max())))
+        return got
+    cdef.filter_plane = held
+    try:
+        return fn(), calls
+    finally:
+        cdef.filter_plane = real
+
+
+def _plain_ms(calls):
+    """Mean ms (CUDA events) of the plain `_filter_plane` on the inputs
+    of `calls`, all of them once per iteration; the ranks take turns."""
+    import torch
+    import torch.distributed as dist
+
+    from av1dec_tpu_torch.ops.kernels import cdef
+    ms = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(PLAIN_ITERS):
+                for args, pad, _ in calls:
+                    cdef._filter_plane(*args, pad=pad)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / PLAIN_ITERS
+        dist.barrier()
+    return ms
 
 
 def _time_cdef(planes, gates, bd, mesh, iters):
@@ -149,7 +203,7 @@ def _frames_run(args, dev, res):
     from av1dec_tpu_torch.parallel.sharded_frames import \
         decode_frames_sharded
     from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
-    K = args.frames_data
+    K = FRAMES_DATA
     parser = NativeParser()
     drs = []
     for _, tu in read_temporal_units(args.frames):
@@ -183,7 +237,6 @@ def main(argv=None):
     ap.add_argument("--cdef")
     ap.add_argument("--n-space", type=int, nargs="*", default=[])
     ap.add_argument("--frames")
-    ap.add_argument("--frames-data", type=int, default=2)
     ap.add_argument("--time", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -204,7 +257,7 @@ def main(argv=None):
            "backend": backend, "device": str(dev)}
     try:
         ids = torch.tensor([dist.get_rank()], dtype=torch.int64,
-                           device=dev if backend == "nccl" else "cpu")
+                           device=pdist.wire_device(None, dev))
         dist.all_reduce(ids)
         res["all_reduce"] = int(ids.item())
         res["in_half_mesh"] = make_mesh(max(1, args.world // 2)) \
@@ -240,14 +293,18 @@ def free_port():
         return s.getsockname()[1]
 
 
-def launch(world, out_dir, extra=(), backend="gloo", device="cpu",
+def launch(world, out_dir, extra=(), backend=None, device="cuda",
            timeout=300):
     """Run `world` worker processes (ranks 0..world-1) on localhost with
-    the arguments `extra` (`backend` None: the workers' default rule);
-    wait at most `timeout` seconds, killing every one of them on a
-    failure or a timeout.  Returns the ranks' results in rank order;
+    the arguments `extra`, on `device` (a card unless "cpu" is named),
+    with `backend` (None: the workers' rule, `initialize_distributed`'s:
+    NCCL when every rank has a card, else name one); wait at most
+    `timeout` seconds, killing every one of them on a failure or a
+    timeout.  Returns the ranks' results in rank order;
     raises RuntimeError with the failed rank's output.  The workers run
     from the checkout's root, so `-m` finds the package there."""
+    from av1dec_tpu_torch import resolve_device
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     port = free_port()
     repo = os.path.dirname(os.path.dirname(os.path.dirname(

@@ -71,9 +71,12 @@ Phases (each raises on failure, so the script exits non-zero):
    c. column-sharded CDEF: one launch of 4 ranks of
       `av1dec_tpu_torch.parallel.worker` on the card (gloo) runs
       `cdef_sharded` on phase 3's frame 0 (deblocked planes, real
-      strengths) at n_space 2 and 4, each byte-equal to `cdef_frame` on
-      the whole frame, 3 `cdef_filter` launches per rank per call
-      (per-rank kernel device ms, halo-exchange ms and bound);
+      strengths) at n_space 2 and 4, each byte-equal to the plain
+      `_cdef_core` on the whole frame (with which `cdef_frame` is held
+      equal too), 3 `cdef_filter` launches per rank per call, each
+      byte-equal to the plain `_filter_plane` on the same shard, maps
+      and halo pad (per-rank kernel device ms, the plain version's ms on
+      the same shards, halo-exchange ms and bound);
    d. frame-sharded decode: in the same launch, `decode_frames_sharded`
       of frames 0-1 at data=2 against the manifest;
    e. NCCL: one rank whose backend the default rule picks (NCCL: it has
@@ -82,7 +85,11 @@ Phases (each raises on failure, so the script exits non-zero):
 
 The `launches` of the `{"kernels": [...]}` line count phases 3, 5 and 6
 for `cdef_frame`, and phase 7's checked calls (counted in each worker
-process) for `cdef_filter`.
+process) for `cdef_filter`.  `cdef_frame`'s times there are phase 2's
+(1080p 4:2:0, random all-tap strengths); `cdef_filter`'s are those of
+the shapes its launches have, rank 0's call at n_space 2 in 7c (luma
+1080x960 and chroma 540x480, with halo pads), and its max_abs_err
+covers phases 2 and 7.
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -909,7 +916,8 @@ def shard_work(planes, gates, bd, subx, suby, n, s):
 
 
 def phase_scale_out(manifest, dev, int_rate, frame0):
-    """7b-e; returns the `cdef_filter` launches of the checked calls."""
+    """7b-e; returns the `cdef_filter` launches of the checked calls and
+    the kernel's measurements on rank 0's call at the first n_space."""
     import tempfile
 
     from av1dec_tpu_torch.container import decode_gops_parallel, read_ivf
@@ -954,12 +962,15 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
         planes, *gates, bd, damping, sx, sy = frame0
         npz = os.path.join(tmp, "frame0.npz")
         save_cdef_input(npz, planes, tuple(gates) + (damping, sx, sy), bd)
-        whole = plane_md5s(cdef.cdef_frame(planes, *gates, bd, damping, sx,
+        whole = plane_md5s(cdef._cdef_core(planes, *gates, bd, damping, sx,
                                            sy))
+        if plane_md5s(cdef.cdef_frame(planes, *gates, bd, damping, sx,
+                                      sy)) != whole:
+            raise AssertionError("cdef_frame != _cdef_core on frame 0")
         t0 = time.perf_counter()
         res = launch(SCALE_RANKS, os.path.join(tmp, "ranks"),
                      ["--cdef", npz, "--n-space", *N_SPACE, "--time",
-                      TIME_ITERS, "--frames", big, "--frames-data", 2],
+                      TIME_ITERS, "--frames", big],
                      backend="gloo", device="cuda", timeout=400)
         t_launch = time.perf_counter() - t0
         launches = 0
@@ -973,12 +984,14 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                                      f"differ from the manifest")
             for n in N_SPACE:
                 c = rec["cdef"][str(n)]
-                if c["md5"] != whole or c["launches"] != 3:
+                if c["md5"] != whole or c["launches"] != 3 or \
+                        c["max_abs_err"]:
                     raise AssertionError(
                         f"rank {rec['rank']} n_space {n}: sharded CDEF "
-                        f"equal to cdef_frame: {c['md5'] == whole}, "
+                        f"equal to _cdef_core: {c['md5'] == whole}, "
                         f"cdef_filter launches {c['launches']} (3 "
-                        f"expected)")
+                        f"expected), max abs err against _filter_plane "
+                        f"{c['max_abs_err']}")
                 launches += c["launches"]
                 nbytes, ops = shard_work(planes, gates, bd, sx, sy, n,
                                          c["space_index"])
@@ -987,13 +1000,19 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                              "shard_widths": c["shard_widths"],
                              "kernel_ms": c["kernel_ms"],
                              "kernels_per_call": c["kernels_per_call"],
+                             "plain_ms": c["plain_ms"],
                              "halo_ms": c["halo_ms"], "bound_ms": b,
                              "bound_by": by,
                              "share_of_bound": b / c["kernel_ms"]})
+                if rec["rank"] == 0 and n == N_SPACE[0]:
+                    path = {"ms": c["kernel_ms"],
+                            "plain_ms": c["plain_ms"], "bound_ms": b,
+                            "bound_by": by}
         log(f"sharded CDEF: {SCALE_RANKS} gloo ranks on the card, n_space "
             f"{' and '.join(map(str, N_SPACE))}: every rank byte-equal to "
-            f"cdef_frame on the whole frame, 3 cdef_filter launches per "
-            f"rank per call ({launches}); sharded frames 0-1 at data=2 "
+            f"_cdef_core on the whole frame, 3 cdef_filter launches per "
+            f"rank per call ({launches}), each byte-equal to _filter_plane "
+            f"on its shard and pad; sharded frames 0-1 at data=2 "
             f"match the manifest on every rank (frames "
             f"{res[0]['frames_s']:.3f} s on rank 0); launch "
             f"{t_launch:.3f} s")
@@ -1002,19 +1021,22 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
         # e: the NCCL path, one rank with a card of its own
         t0 = time.perf_counter()
         res = launch(1, os.path.join(tmp, "nccl"),
-                     ["--cdef", npz, "--n-space", 1], backend=None,
-                     device="cuda", timeout=200)[0]
+                     ["--cdef", npz, "--n-space", 1], device="cuda",
+                     timeout=200)[0]
         c = res["cdef"]["1"]
         if res["backend"] != "nccl" or res["all_reduce"] != 0 or \
-                c["md5"] != whole or c["launches"] != 3:
+                c["md5"] != whole or c["launches"] != 3 or \
+                c["max_abs_err"]:
             raise AssertionError(f"NCCL rank: backend {res['backend']}, "
-                                 f"equal to cdef_frame {c['md5'] == whole}"
-                                 f", cdef_filter launches {c['launches']}")
+                                 f"equal to _cdef_core {c['md5'] == whole}"
+                                 f", cdef_filter launches {c['launches']}"
+                                 f", max abs err {c['max_abs_err']}")
         launches += c["launches"]
         log(f"NCCL: world-size-1 group (backend picked: {res['backend']}), "
-            f"sharded CDEF at n_space 1 byte-equal to cdef_frame, 3 "
-            f"cdef_filter launches; launch {time.perf_counter() - t0:.3f} s")
-    return launches
+            f"sharded CDEF at n_space 1 byte-equal to _cdef_core, 3 "
+            f"cdef_filter launches byte-equal to _filter_plane; launch "
+            f"{time.perf_counter() - t0:.3f} s")
+    return launches, path
 
 
 def timed_phase(name, fn, *args):
@@ -1054,8 +1076,11 @@ def main():
     launches += timed_phase("5 (with 7a)", phase_inter, manifest, dev,
                             int_rate)
     launches += timed_phase("6", phase_host, manifest, dev)
-    filter_launches = timed_phase("7b-e", phase_scale_out, manifest, dev,
-                                  int_rate, frame0)
+    filter_launches, path = timed_phase("7b-e", phase_scale_out, manifest,
+                                        dev, int_rate, frame0)
+    # the per-plane kernel's entry: its times at the shapes of its
+    # launches (phase 7); its error over phase 2 (phase 7 raises on any)
+    path["max_abs_err"] = filt["max_abs_err"]
 
     def line(name, replaces, k, n):
         return {"name": name, "route": "cuda",
@@ -1067,7 +1092,7 @@ def main():
     log(json.dumps({"kernels": [
         line("cdef_frame", "av1dec_tpu/ops/kernels/cdef.py:342", frame,
              launches),
-        line("cdef_filter", "av1dec_tpu/ops/kernels/cdef.py:342", filt,
+        line("cdef_filter", "av1dec_tpu/ops/kernels/cdef.py:342", path,
              filter_launches),
     ]}))
     log(card)

@@ -53,8 +53,8 @@ def two(tmp_path_factory, cdef_input):
     from av1dec_tpu_torch.parallel.worker import launch
     return launch(2, str(tmp_path_factory.mktemp("two")),
                   ["--gops", stream_path("gops"), "--cdef", cdef_input[0],
-                   "--n-space", 2, "--frames", stream_path("multi"),
-                   "--frames-data", 2], timeout=240)
+                   "--n-space", 2, "--frames", stream_path("multi")],
+                  backend="gloo", device="cpu", timeout=240)
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def four(tmp_path_factory, cdef_input):
     from av1dec_tpu_torch.parallel.worker import launch
     return launch(4, str(tmp_path_factory.mktemp("four")),
                   ["--cdef", cdef_input[0], "--n-space", 4, 2],
-                  timeout=240)
+                  backend="gloo", device="cpu", timeout=240)
 
 
 def _jax_halo(world):
@@ -141,6 +141,7 @@ def test_sharded_cdef_matches_core_and_jax(two, four, cdef_input):
             for n in sizes:
                 assert rec["cdef"][n]["md5"] == whole, (len(res), n)
                 assert rec["cdef"][n]["launches"] == 0  # CPU: plain
+                assert rec["cdef"][n]["max_abs_err"] == 0
 
 
 def test_sharded_cdef_refuses_unaligned_widths(cdef_input):

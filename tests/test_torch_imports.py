@@ -111,17 +111,27 @@ def test_entry_points_need_a_card_unless_cpu_is_named():
     Decoder(device="cpu").close()
 
 
-def test_scale_out_needs_a_card_or_a_named_backend(monkeypatch):
+def test_scale_out_needs_a_card_or_a_named_backend(monkeypatch, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from torch_port_helpers import stream_path
     from av1dec_tpu_torch.container import decode_gops_parallel
     from av1dec_tpu_torch.parallel import dist
+    from av1dec_tpu_torch.parallel.sharded_frames import \
+        decode_frames_sharded
+    from av1dec_tpu_torch.parallel.worker import launch
     path = stream_path("gops")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode_gops_parallel(path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dist.decode_my_gops(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_frames_sharded([], None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch(2, str(tmp_path / "card"))
+    # the CPU named and no backend: the workers' own rule refuses
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        launch(2, str(tmp_path / "cpu"), device="cpu", timeout=120)
     with pytest.raises(ValueError, match="backend='gloo'"):
         dist.initialize_distributed("localhost:1", 2, 0)
     for name in ("AV1DEC_COORDINATOR", "AV1DEC_NUM_PROCS",
