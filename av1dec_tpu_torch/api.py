@@ -13,9 +13,12 @@ reference list) through the MC pass, the wavefront scan and the
 postfilter.  The other frames (OBMC, local or global warp, inter-intra,
 scaled references, intra block copy) take the host pixel path,
 `pipeline/recon.FrameRecon`: a NumPy walk over the blocks with the
-residuals and CDEF on the same device.  A frame with a compound block
-raises NotImplementedError on either path: the reference package's
-compound prediction differs from libaom (ROADMAP queue 3).  Film grain
+residuals and CDEF on the same device.  Compound frames take the path
+the reference picks for them: average and distance-weighted compound
+the device path, wedge and difference-weighted compound the host path;
+both blend as libaom does (the reference package's compound prediction
+and the native parser it copies differ from libaom on compound
+frames, ROADMAP queue 3; the port's copies are repaired).  Film grain
 is added at output (`ops/spec/film_grain.py`).  The DPB keeps each
 reference frame's planes on the host and, for a frame of the device
 path, on the device (`dev_planes`); inter frames of the device path read
@@ -42,7 +45,6 @@ import torch
 
 from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.bindings import NativeParser
-from av1dec_tpu_torch.pipeline.device_inter import compound_reason
 from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
                                                     postfilter_batch,
                                                     prep_batch, scan_batch,
@@ -112,20 +114,15 @@ class Decoder:
     """AV1 decoder: temporal units in, display-order frames out.
 
     `config`: DecoderConfig (threads, operating point, grain, frame
-    limits); None = defaults.  `device`: the torch device of the pixel
-    path, "cuda" by default; the CPU runs only when named."""
+    limits, `space_shards`: CDEF in that many column shards over the
+    cards of the process, or on one device, with a warning, when there
+    are fewer cards or the frame width does not split); None =
+    defaults.  `device`: the torch device of the pixel path, "cuda" by
+    default; the CPU runs only when named."""
 
     def __init__(self, config=None, device="cuda") -> None:
         from av1dec_tpu_torch.config import DecoderConfig
         self.config = config or DecoderConfig()
-        if self.config.space_shards > 1:
-            # the JAX Decoder shards CDEF over the devices of its own
-            # process; the port's shards are ranks of a torch.distributed
-            # group, which run `parallel.sharded_cdef.cdef_sharded` SPMD
-            raise NotImplementedError(
-                "av1dec_tpu_torch: DecoderConfig.space_shards is not "
-                "taken by the port's Decoder; shard CDEF across ranks with "
-                "av1dec_tpu_torch.parallel.sharded_cdef.cdef_sharded")
         self.device = resolve_device(device)
         self._parser = NativeParser(
             threads=self.config.threads,
@@ -153,11 +150,6 @@ class Decoder:
                 continue
             refs = None
             if not hdr.get("frame_is_intra", 1):
-                reason = compound_reason(plans)
-                if reason is not None:
-                    raise NotImplementedError(
-                        f"av1dec_tpu_torch: {reason} is not decoded by "
-                        f"this port")
                 refs = {}
                 for rf in range(1, 8):
                     idx = hdr["ref_frame_idx"][rf - 1]
@@ -360,23 +352,28 @@ def decode_ivf(path: str, config=None, device="cuda") -> List[OutputFrame]:
     return decode_file(path, config, device)
 
 
-STAGES = ("parse", "host_prep", "scan", "postfilter", "fetch")
+STAGES = ("parse", "host_path", "host_prep", "scan", "postfilter", "fetch")
 
 
 def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
     """Decode the temporal units `datas` of an all-intra stream in
     batches of `batch` frames: frames are independent, so one wavefront
     scan serves the whole batch (level i of every frame at the same scan
-    position).  An inter frame raises NotImplementedError: it depends on
+    position).  An intra frame the device path refuses (intra block
+    copy) is decoded inline, in frame order, on the host pixel path
+    (`pipeline/recon.FrameRecon`, with its residuals and CDEF on
+    `device`), as the JAX package's `bench.py` decode_stream_pipelined
+    does.  An inter frame raises NotImplementedError: it depends on
     earlier frames of the batch (decode such streams with `Decoder`).
     The host prep of batch k+1 (residual itx, lane packing, deblock
     maps) runs on a worker thread while the device works on batch k.
-    Returns per-frame host plane lists (int64).
+    Returns per-frame host plane lists (int64), in frame order.
 
     `timings`: optional dict that receives the seconds of each stage of
     STAGES; the device is then synchronised after the scan and after the
     postfilter of every batch so that each stage's time is its own
-    (host prep is the worker's own time)."""
+    (host prep is the worker's own time; `host_path` is the host pixel
+    path's frames, out of `parse`)."""
     dev = resolve_device(device)
     sync = (torch.cuda.synchronize if dev.type == "cuda" and
             timings is not None else (lambda: None))
@@ -384,6 +381,7 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
     t0 = time.perf_counter()
     parser = NativeParser()
     drs = []
+    slots = []  # frame order: ("dev", index in drs) or ("host", planes)
     for d in datas:
         for hdr, plans in parser.parse_tu(d, with_plans=True):
             if hdr.get("show_existing_frame"):
@@ -395,15 +393,17 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
                     "the frames of a batch are independent, and an inter "
                     "frame is not (decode it with Decoder)")
             dr = DeviceRecon(parser.seq, hdr, plans)
-            if not dr.supported():
-                raise NotImplementedError(
-                    f"decode_stream_batched: {dr.unsupported_reason()} is "
-                    f"not on the device path (decode the stream with "
-                    f"Decoder, which takes such frames on the host pixel "
-                    f"path)")
-            drs.append(dr)
+            if dr.supported():
+                slots.append(("dev", len(drs)))
+                drs.append(dr)
+            else:
+                t = time.perf_counter()
+                planes = FrameRecon(parser.seq, hdr, plans,
+                                    device=dev).run()
+                slots.append(("host", [np.asarray(p) for p in planes]))
+                tm["host_path"] += time.perf_counter() - t
     parser.close()
-    tm["parse"] = time.perf_counter() - t0
+    tm["parse"] = time.perf_counter() - t0 - tm["host_path"]
 
     def timed_prep(ch):
         t = time.perf_counter()
@@ -429,7 +429,8 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
             sync()
             tm["postfilter"] += time.perf_counter() - t
     t = time.perf_counter()
-    out = [dr.fetch(planes) for dr, planes in zip(drs, dev_out)]
+    fetched = [dr.fetch(planes) for dr, planes in zip(drs, dev_out)]
+    out = [fetched[v] if kind == "dev" else v for kind, v in slots]
     tm["fetch"] = time.perf_counter() - t
     if timings is not None:
         timings.update(tm)

@@ -146,8 +146,12 @@ def write_annexb(path: str, tus: List[bytes]) -> None:
 
 
 def _walks_as_obu_stream(data: bytes) -> bool:
-    """True if `data` parses as a chain of size-bearing low-overhead
-    OBUs covering the buffer exactly (the probe for raw OBU files)."""
+    """True if `data` parses as a chain of low-overhead OBUs covering
+    the buffer exactly (the probe for raw OBU files): each OBU carries
+    its size, except that the last one may leave it out and run to the
+    end of the buffer, as the spec allows [SPEC §5.3.1].  The first OBU
+    must carry a size (an Annex B length byte can read as a sizeless
+    OBU header)."""
     pos, n = 0, len(data)
     seen = 0
     while pos < n:
@@ -159,8 +163,8 @@ def _walks_as_obu_stream(data: bytes) -> bool:
             return False
         ext = (b0 >> 2) & 1
         has_size = (b0 >> 1) & 1
-        if not has_size:     # raw streams carry size fields
-            return False
+        if not has_size:     # the last OBU: its payload runs to the end
+            return seen > 0 and pos + 1 + ext <= n
         try:
             size, body = leb128_read(data, pos + 1 + ext)
         except ValueError:

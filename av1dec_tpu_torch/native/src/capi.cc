@@ -8,6 +8,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <exception>
 #include <memory>
 #include <sstream>
 #include <string>
@@ -461,12 +462,21 @@ struct Des {
     off += n;
   }
   template <typename T> void get_pod(T* v) { get(v, sizeof(T)); }
+  // a vector's length is checked against the bytes left before
+  // anything is allocated (-1 is put_vec's null vector)
   template <typename V>
   void get_vec(std::shared_ptr<V>* v) {
-    int64_t n; get_pod(&n);
-    if (!ok || n < 0) { v->reset(); return; }
+    const int64_t elem = (int64_t)sizeof(typename V::value_type);
+    int64_t n = 0;
+    get_pod(&n);
+    v->reset();
+    if (!ok || n == -1) return;
+    if (n < 0 || n > (size - off) / elem) {
+      ok = false;
+      return;
+    }
     *v = std::make_shared<V>((size_t)n);
-    get((*v)->data(), n * (int64_t)sizeof(typename V::value_type));
+    get((*v)->data(), n * elem);
   }
 };
 
@@ -660,10 +670,20 @@ int av1n_state_save(void* hp, uint8_t* buf, int64_t cap) {
   return (s.ok && s.off <= cap) ? 0 : -1;
 }
 
+// Restores into a copy of the state and commits it only when the whole
+// blob reads: a bad blob leaves the decoder as it was.
 int av1n_state_restore(void* hp, const uint8_t* buf, int64_t size) {
   Handle* h = (Handle*)hp;
-  Des d{buf, size};
-  return state_deserialize(&h->st, d);
+  if (!buf || size < 0) return -1;
+  try {
+    auto tmp = std::make_unique<DecoderState>(h->st);
+    Des d{buf, size};
+    if (state_deserialize(tmp.get(), d) != 0) return -1;
+    h->st = std::move(*tmp);
+  } catch (const std::exception&) {
+    return -1;
+  }
+  return 0;
 }
 
 void* av1n_create() { return new Handle(); }

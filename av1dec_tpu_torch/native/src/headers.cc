@@ -1266,6 +1266,14 @@ int parse_frame_header(BitReader& b, DecoderState* st) {
 
 void reference_frame_update(DecoderState* st) {
   const FrameHeader& h = st->hdr;
+  // the order hints of this frame's references, read before any slot is
+  // refreshed: a refreshed slot may be one of them [SPEC §7.20
+  // SavedOrderHints; libaom av1_setup_frame_buf_refs]
+  int ref_hints[NUM_REF_FRAMES] = {};
+  if (!h.frame_is_intra) {
+    for (int j = LAST_FRAME; j <= ALTREF_FRAME; j++)
+      ref_hints[j] = st->ref[h.ref_frame_idx[j - LAST_FRAME]].order_hint;
+  }
   for (int i = 0; i < NUM_REF_FRAMES; i++) {
     if ((h.refresh_frame_flags >> i) & 1) {
       RefSlot* r = &st->ref[i];
@@ -1284,18 +1292,8 @@ void reference_frame_update(DecoderState* st) {
       r->subsampling_x = st->seq.subsampling_x;
       r->subsampling_y = st->seq.subsampling_y;
       r->showable_frame = h.showable_frame;
-      for (int j = 0; j < NUM_REF_FRAMES; j++) {
-        r->ref_order_hints[j] =
-            (j >= LAST_FRAME && !h.frame_is_intra)
-                ? st->ref[h.ref_frame_idx[j - LAST_FRAME]].order_hint
-                : 0;
-      }
-      if (!h.frame_is_intra) {
-        for (int j = LAST_FRAME; j <= ALTREF_FRAME; j++) {
-          r->ref_order_hints[j] =
-              st->ref[h.ref_frame_idx[j - LAST_FRAME]].order_hint;
-        }
-      }
+      for (int j = 0; j < NUM_REF_FRAMES; j++)
+        r->ref_order_hints[j] = ref_hints[j];
       r->saved_gm = h.gm;
       r->saved_lf = h.lf;
       r->saved_seg = h.seg;

@@ -366,7 +366,7 @@ void TileDecoder::read_ref_frames() {
       if (edgeIntra || edgeSingle)
         ctx = 2;
       else
-        ctx = 3 * edgeUni;
+        ctx = 4 * edgeUni;
     } else {
       ctx = 2;
     }
@@ -749,7 +749,9 @@ void TileDecoder::add_extra_mv_candidate(int mvRow, int mvCol) {
              !(ref_mv_stack_[idx][0][0] == candMv[0] &&
                ref_mv_stack_[idx][0][1] == candMv[1]))
         idx++;
-      if (idx == num_mv_found_ && num_mv_found_ < 2) {
+      // both lists of a compound candidate may add, past 2 entries
+      // [SPEC §7.10.2.13; libaom process_single_ref_mv_candidate]
+      if (idx == num_mv_found_) {
         ref_mv_stack_[num_mv_found_][0][0] = candMv[0];
         ref_mv_stack_[num_mv_found_][0][1] = candMv[1];
         weight_stack_[num_mv_found_] = 2;
@@ -1599,7 +1601,7 @@ int TileDecoder::inter_block_mode_info() {
   } else if (isCompound) {
     // Compound_Mode_Ctx_Map [SPEC §9.3]
     static const uint8_t kCompModeCtxMap[3][5] = {
-        {0, 1, 1, 1, 1}, {3, 4, 4, 4, 4}, {5, 6, 6, 6, 6}};
+        {0, 1, 1, 1, 1}, {1, 2, 3, 4, 4}, {4, 4, 5, 6, 7}};
     int ctx = kCompModeCtxMap[ref_mv_ctx_ >> 1][std::min(new_mv_ctx_, 4)];
     int sym = r_.decode_symbol(cdf_->inter_compound_mode[ctx], 8);
     y_mode_ = NEAREST_NEARESTMV + sym;

@@ -1202,6 +1202,16 @@ void TileDecoder::palette_tokens() {
     int maxY = ((mi_rows_ * 4) >> suby) - ((mi_row_ * 4) >> suby);
     int ow = std::min(bw, maxX);
     int oh = std::min(bh, maxY);
+    // a chroma map under 4 samples wide (high), a 4x16 or 16x4 block's,
+    // covers 2 more [SPEC §5.11.49]
+    if (bw < 4) {
+      bw += 2;
+      ow += 2;
+    }
+    if (bh < 4) {
+      bh += 2;
+      oh += 2;
+    }
     std::vector<uint8_t> map((size_t)bh * bw, 0);
     // first sample is NS(n) coded (non-symmetric uniform) [SPEC §4.10.7]
     {

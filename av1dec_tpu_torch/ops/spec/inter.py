@@ -256,20 +256,22 @@ QUANT_DIST_LOOKUP = [(9, 7), (11, 5), (12, 4), (13, 3)]
 
 def dist_weights(d0: int, d1: int):
     """Distance-weighted compound weights (fwd, bck); d0 = |dist| of ref1,
-    d1 = |dist| of ref0 as in the spec.  [SPEC §7.11.3.15]"""
+    d1 = |dist| of ref0 as in the spec.  [SPEC §7.11.3.15]
+
+    libaom's rule (`av1_dist_wtd_comp_weight_assign`): the table's pair
+    is read in `order`, and the search stops at the first row whose
+    weighted distances cross, in the direction that `order` sets."""
     order = int(d0 <= d1)
     if d0 == 0 or d1 == 0:
         fwd = QUANT_DIST_LOOKUP[3][order]
         bck = QUANT_DIST_LOOKUP[3][1 - order]
         return fwd, bck
     for i in range(3):
-        c0, c1 = QUANT_DIST_WEIGHT[i]
-        if order:
-            if d0 * c0 <= d1 * c1:
-                break
-        else:
-            if d1 * c0 <= d0 * c1:
-                break
+        c0 = QUANT_DIST_WEIGHT[i][order]
+        c1 = QUANT_DIST_WEIGHT[i][1 - order]
+        if (d0 > d1 and d0 * c0 < d1 * c1) or \
+                (d0 <= d1 and d0 * c0 > d1 * c1):
+            break
     else:
         i = 3
     fwd = QUANT_DIST_LOOKUP[i][order]
@@ -318,8 +320,8 @@ _CODEBOOK_BASE = [
 ]
 WEDGE_CODEBOOK = [
     _CODEBOOK_BASE + [
-        (WEDGE_VERTICAL, 4, 2), (WEDGE_VERTICAL, 4, 4),
-        (WEDGE_VERTICAL, 4, 6), (WEDGE_HORIZONTAL, 4, 4),
+        (WEDGE_VERTICAL, 2, 4), (WEDGE_VERTICAL, 4, 4),
+        (WEDGE_VERTICAL, 6, 4), (WEDGE_HORIZONTAL, 4, 4),
         (WEDGE_OBLIQUE27, 4, 2), (WEDGE_OBLIQUE27, 4, 6),
         (WEDGE_OBLIQUE153, 4, 2), (WEDGE_OBLIQUE153, 4, 6),
         (WEDGE_OBLIQUE63, 2, 4), (WEDGE_OBLIQUE63, 6, 4),
@@ -339,11 +341,6 @@ WEDGE_CODEBOOK = [
         (WEDGE_OBLIQUE63, 2, 4), (WEDGE_OBLIQUE63, 6, 4),
         (WEDGE_OBLIQUE117, 2, 4), (WEDGE_OBLIQUE117, 6, 4)],
 ]
-
-# Wedge sign-flip convention per (shape class, wedge index).  The
-# normative table is validated empirically against the oracle by the
-# wedge battery case (tools/calibrate_wedge.py writes the final values).
-WEDGE_SIGNFLIP = np.zeros((3, 16), np.int32)
 
 _master_cache = {}
 
@@ -383,7 +380,12 @@ def wedge_mask(bw: int, bh: int, wedge_idx: int, wedge_sign: int):
     xoff = MASK_MASTER_SIZE // 2 - ((x_off * bw) >> 3)
     yoff = MASK_MASTER_SIZE // 2 - ((y_off * bh) >> 3)
     m = master[yoff: yoff + bh, xoff: xoff + bw]
-    if wedge_sign ^ int(WEDGE_SIGNFLIP[cls][wedge_idx]):
+    # flipSign: the sign whose mask is the master's own window, 1 where
+    # the window's first row and column average below 32; the other
+    # sign takes 64 - master [SPEC §7.11.3.11; libaom init_wedge_signs]
+    edge = int(m[0, :].sum()) + int(m[1:, 0].sum())
+    flip = int((edge + (bw + bh - 1) // 2) // (bw + bh - 1) < 32)
+    if wedge_sign != flip:
         return 64 - m
     return m
 
@@ -398,25 +400,26 @@ def diffwtd_mask(p0, p1, mask_type: int, bd: int):
     return (64 - m) if mask_type else m
 
 
-def interintra_mask(mode: int, bw: int, bh: int, use_wedge: bool,
-                    wedge_idx: int):
-    """Inter-intra blend mask: the mask weights the INTRA prediction.
-    mode: 0=DC, 1=V, 2=H, 3=SMOOTH [SPEC §7.11.3.13]"""
-    if use_wedge:
-        return wedge_mask(bw, bh, wedge_idx, 0)
+def interintra_mask(mode: int, bw: int, bh: int):
+    """Smooth inter-intra blend mask (a wedge inter-intra block takes
+    `wedge_mask` with sign 0): the mask weights the INTRA prediction.
+    mode: 0=DC, 1=V, 2=H, 3=SMOOTH [SPEC §7.11.3.13].  Built at the
+    plane block's own size bw x bh, the 1-D weights stepped by
+    sizeScale = 128 / max(bw, bh) (libaom's ii_size_scales)."""
     ii = T.II_WEIGHTS_1D
+    scale = 128 // max(bw, bh)
     if mode == 0:  # II_DC_PRED
         return np.full((bh, bw), 32, np.int32)
     if mode == 1:  # II_V_PRED: weight decays downward
-        scale = ii[np.minimum(np.arange(bh), 127)]
-        return np.broadcast_to(scale[:, None], (bh, bw)).astype(np.int32)
+        w = ii[np.arange(bh) * scale]
+        return np.broadcast_to(w[:, None], (bh, bw)).astype(np.int32)
     if mode == 2:  # II_H_PRED
-        scale = ii[np.minimum(np.arange(bw), 127)]
-        return np.broadcast_to(scale[None, :], (bh, bw)).astype(np.int32)
+        w = ii[np.arange(bw) * scale]
+        return np.broadcast_to(w[None, :], (bh, bw)).astype(np.int32)
     # II_SMOOTH_PRED: min distance from top/left
-    iy = np.minimum(np.arange(bh), 127)
-    ix = np.minimum(np.arange(bw), 127)
-    return ii[np.minimum(iy[:, None], ix[None, :])].astype(np.int32)
+    iy, ix = np.arange(bh), np.arange(bw)
+    return ii[np.minimum(iy[:, None], ix[None, :]) * scale] \
+        .astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

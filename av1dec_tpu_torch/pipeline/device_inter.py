@@ -9,13 +9,10 @@ sub-8x8 chroma piece) one row of MC_FIELDS with destination window,
 packed-reference indexing, tap origins, filter rows, and compound
 weights.  Frames with any exotic block (warp, OBMC, wedge/diffwtd,
 inter-intra, intra-bc, scaled refs, global warp) are not on the device
-path; `ineligible_reason` decides and names the tool.  It also refuses
-average and distance-weighted compound, which the reference takes: the
-reference's compound prediction differs from libaom (ROADMAP queue 3),
-so the lanes below still build compound rows, but no frame with one
-reaches the MC pass until that fault is fixed.  `compound_reason` is
-that refusal alone: `api.Decoder` runs it on every inter frame before
-it routes the frame, so a compound frame reaches neither path.
+path; `ineligible_reason` decides and names the tool.  Average and
+distance-weighted compound blocks take two-list lanes (the MC pass
+blends them in-lane); the distance weights are libaom's
+(`ops/spec/inter.dist_weights`), which the reference's differ from.
 
 `frame_eligible`, `_pack_refs`, `_list_params` and `_build_lanes` are
 the reference's.  What differs: the reference's `InterPlan.ref_flat`
@@ -100,26 +97,12 @@ def frame_eligible(hdr, plans, refs, num_planes):
     return True
 
 
-def compound_reason(plans):
-    """The port refuses every frame with a compound block (an inter
-    block with a second reference), on both of its paths, while the
-    reference's compound prediction differs from libaom (ROADMAP queue
-    3): the refusal's text, or None."""
-    g = plans.grid
-    inter = np.asarray(g("is_inter")) != 0
-    if (np.asarray(g("ref1"))[inter] > INTRA_FRAME).any():
-        return "compound prediction (reference fault, ROADMAP queue 3)"
-    return None
-
-
 def ineligible_reason(hdr, plans, refs, num_planes):
     """The port's eligibility policy: None when the device MC path takes
     the frame, else the inter tool that keeps it off (checked in
-    frame_eligible's order).  Stricter than the reference's
-    `frame_eligible` in one point: a frame with any compound block is
-    refused, because the reference's compound prediction differs from
-    libaom (ROADMAP queue 3).  A frame `frame_eligible` refuses for a
-    reason not named here gets a neutral one."""
+    frame_eligible's order), the same frames `frame_eligible` refuses.
+    A frame `frame_eligible` refuses for a reason not named here gets a
+    neutral one."""
     g = plans.grid
     inter = np.asarray(g("is_inter")) != 0
     if not inter.any():
@@ -138,25 +121,28 @@ def ineligible_reason(hdr, plans, refs, num_planes):
     if (np.asarray(g("compound_type"))[inter] > 1).any():
         return "inter frame with wedge or difference-weighted compound"
     ref0 = np.asarray(g("ref0"))
-    reason = compound_reason(plans)
-    if reason is not None:
-        return reason
-    for r in np.unique(ref0[inter & (ref0 > INTRA_FRAME)]).tolist():
+    ref1 = np.asarray(g("ref1"))
+    used = np.union1d(ref0[inter & (ref0 > INTRA_FRAME)],
+                      ref1[inter & (ref1 > INTRA_FRAME)])
+    for r in used.tolist():
         ent = refs.get(r)
         if ent is None:
             return "inter frame with a missing reference frame"
         if (ent["width"], ent["height"]) != (hdr["frame_width"],
                                              hdr["frame_height"]):
             return "inter frame with a scaled reference"
-    # [SPEC §7.11.3.1 useWarp]: GLOBALMV on a >= 8x8 block whose
-    # reference has a more than translational global motion
-    # (GLOBAL_GLOBALMV is compound, refused above)
+    # [SPEC §7.11.3.1 useWarp]: GLOBALMV or GLOBAL_GLOBALMV on a >= 8x8
+    # block whose reference (either one, for the compound mode) has a
+    # more than translational global motion
     gm_type = np.asarray((hdr.get("gm") or {}).get("type", [0] * 8))
     bsz = np.asarray(g("bsize"))
-    glob = inter & (np.asarray(g("mode")) == GLOBALMV) & \
+    mode = np.asarray(g("mode"))
+    glob = inter & np.isin(mode, (GLOBALMV, GLOBAL_GLOBALMV)) & \
         (np.minimum(np.asarray(BLOCK_W4)[bsz], np.asarray(BLOCK_H4)[bsz])
          >= 2)
-    if (gm_type[np.clip(ref0, 0, 7)][glob] > 1).any():
+    glob1 = glob & (mode == GLOBAL_GLOBALMV) & (ref1 > INTRA_FRAME)
+    if (gm_type[np.clip(ref0, 0, 7)][glob] > 1).any() or \
+            (gm_type[np.clip(ref1, 0, 7)][glob1] > 1).any():
         return "inter frame with global warp motion"
     if not frame_eligible(hdr, plans, refs, num_planes):
         return "inter tool outside the MC lanes"

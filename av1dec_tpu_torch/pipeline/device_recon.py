@@ -19,14 +19,17 @@ identical inputs (`to_torch_inputs` uploads the JAX package's
 only to keep its jit keys stable is left out: power-of-two capacities
 and batch padding (eager torch runs exact sizes), and the scan's CHUNK.
 Inter frames that `device_inter.ineligible_reason` refuses (exotic
-tools, and compound prediction while the reference's differs from
-libaom) and intra block copy frames have no schedule here: `api.Decoder`
-sends them to the host pixel path (`pipeline/recon.FrameRecon`), but
-compound frames, which it refuses.  Column-sharded CDEF is not ported.
+tools: OBMC, warp, inter-intra, wedge and difference-weighted compound,
+scaled references) and intra block copy frames have no schedule here:
+`api.Decoder` sends them to the host pixel path
+(`pipeline/recon.FrameRecon`).  With `DecoderConfig.space_shards` > 1
+CDEF runs in column shards over the devices of the process
+(`_cdef_device`, `parallel/sharded_cdef.cdef_local`).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -49,6 +52,7 @@ BUCKETS = (16, 32, 64)
 BWIN = {16: 128, 32: 64, 64: 16}  # window lane caps
 FLAT_PAD = 64  # tail pad so T-wide row windows never cross the end
 _DEV_F = {name: i for i, name in enumerate(_DEV_FIELDS)}
+_log = logging.getLogger("av1dec_tpu_torch")
 
 
 def _bucket_for(w, h):
@@ -115,7 +119,11 @@ class DeviceRecon:
     `refs`: for inter frames, {ref_frame (1..7): {"planes", "width",
     "height", "dev_planes"}} from the decoder's DPB, as in the JAX
     package; `dev_planes` (device tensors or None) are read in place of
-    the host planes."""
+    the host planes.
+
+    With `config.space_shards` n > 1 and CDEF on, the postfilter runs
+    unfused and CDEF runs in n column shards over the devices of this
+    process (`_cdef_device`)."""
 
     def __init__(self, seq, hdr, plans, config=None, refs=None):
         self.config = config
@@ -254,6 +262,25 @@ class DeviceRecon:
                  (_i32(fh, dev), _i32(lh, dev)))
                 for (fv, lv), (fh, lh) in maps)
             sharp = int(self.hdr["lf"]["sharpness"])
+        if gates is not None and \
+                (getattr(self.config, "space_shards", 0) or 0) > 1:
+            # column-sharded CDEF (unfused): slice -> deblock -> pre-CDEF
+            # copy -> CDEF; superres and LR finish on the host
+            # (finish_host), as in the JAX package
+            odt = torch.uint8 if sch.bd == 8 else torch.uint16
+            planes = []
+            for p in range(sch.num_planes):
+                (ha, wa), (vh, vw) = sch.alloc_dims[p], sch.valid_dims[p]
+                b = base + sch.plane_base[p]
+                planes.append(frame[b: b + ha * wa].reshape(ha, wa)
+                              [:vh, :vw])
+            if maps is not None:
+                planes = list(deblock_planes(tuple(planes), dbl_dev, sharp,
+                                             sch.bd))
+            pre = [p.to(odt) for p in planes] \
+                if self._needs_pre_cdef() else None
+            planes = self._cdef_device(planes, gates)
+            return [p.to(odt) for p in planes], pre
         gates_dev = ()
         damping = 0
         subx_c = suby_c = 0
@@ -397,6 +424,33 @@ class DeviceRecon:
             taps = np.asarray(S.FILTER, np.int32)[subpel]
             out.append((cols, taps))
         return out
+
+    def _cdef_device(self, planes, gates):
+        """CDEF of the deblocked planes in `config.space_shards` column
+        shards (`parallel.sharded_cdef.cdef_local`) over
+        `sharded_cdef.local_devices`.  A width that is not
+        a multiple of 8 * shards, or fewer devices than shards, falls
+        back to one device (`cdef_frame`) with a warning on the
+        `av1dec_tpu_torch` logger."""
+        from av1dec_tpu_torch.parallel import sharded_cdef
+        n = self.config.space_shards
+        dev = planes[0].device
+        devices = sharded_cdef.local_devices(dev)
+        width = planes[0].shape[1]
+        if width % (8 * n):
+            _log.warning("sharded CDEF: width %d not divisible by 8*%d "
+                         "shards; falling back to single-device", width, n)
+        elif len(devices) < n:
+            _log.warning("sharded CDEF: %d device(s) for %d shards; "
+                         "falling back to single-device", len(devices), n)
+        else:
+            return list(sharded_cdef.cdef_local(planes, gates, self.sch.bd,
+                                                devices[:n]))
+        y_pri, y_sec, uv_pri, uv_sec, damping, subx, suby = gates
+        return list(cdef_dev.cdef_frame(
+            tuple(planes), *(_i32(g, dev) for g in (y_pri, y_sec, uv_pri,
+                                                     uv_sec)),
+            self.sch.bd, damping, subx, suby))
 
     def run(self, device="cuda"):
         """Full frame on `device` (a card unless "cpu" is named); returns

@@ -161,6 +161,7 @@ class InterPredictor:
                     use_warp = True
 
         n_planes = r.num_planes if has_chroma else 1
+        diff_mask = None
         for plane in range(n_planes):
             ssx = r.sub_x if plane else 0
             ssy = r.sub_y if plane else 0
@@ -260,8 +261,14 @@ class InterPredictor:
                 p1 = self._pred_one(plane, px0, py0, pw, ph, mv[1][0],
                                     mv[1][1], ref1, interp, True,
                                     use_warp1, wp1, sh1, False)
+                if comp_type == 3 and plane == 0:
+                    # the difference-weighted mask comes from the luma
+                    # intermediates, once per block, and chroma takes it
+                    # subsampled as it takes a wedge mask [SPEC §7.11.3.12]
+                    diff_mask = I.diffwtd_mask(p0, p1, wedge & 1, r.bd)
                 out = self._compound_blend(p0, p1, comp_type, wedge,
-                                           ref0, ref1, bw4, bh4, ssx, ssy)
+                                           ref0, ref1, bw4, bh4, ssx, ssy,
+                                           diff_mask)
                 frame[py0: py0 + ph, px0: px0 + pw] = out
 
         if motion_mode == 1:  # OBMC
@@ -275,7 +282,7 @@ class InterPredictor:
 
     # -- compound blends ----------------------------------------------------
     def _compound_blend(self, p0, p1, comp_type, wedge, ref0, ref1,
-                        bw4, bh4, ssx, ssy):
+                        bw4, bh4, ssx, ssy, diff_mask=None):
         bd = self.r.bd
         if comp_type == 0:  # average
             return I.avg_blend(p0, p1, bd)
@@ -292,11 +299,11 @@ class InterPredictor:
             mask = I.wedge_mask(bw4 * 4, bh4 * 4, wedge & 15,
                                 (wedge >> 4) & 1)
             return I.mask_blend(mask, p0, p1, bd, ssx, ssy, False)
-        # diffwtd: mask derived from the LUMA intermediates; for chroma the
-        # mask is recomputed from the chroma preds per spec mask scaling?
-        # [SPEC §7.11.3.12]: mask computed once from the preds of the plane?
-        mask = I.diffwtd_mask(p0, p1, wedge & 1, bd)
-        return I.mask_blend(mask, p0, p1, bd, 0, 0, False)
+        # diffwtd: the caller's mask from the block's luma predictions
+        if diff_mask is None:
+            raise ValueError("difference-weighted compound needs the "
+                             "block's luma mask")
+        return I.mask_blend(diff_mask, p0, p1, bd, ssx, ssy, False)
 
     # -- inter-intra --------------------------------------------------------
     def _interintra(self, plane, by, bx, bw4, bh4, px0, py0, pw, ph,
@@ -313,10 +320,14 @@ class InterPredictor:
         ipred = ia.predict_intra(frame, (plane_h, plane_w), px0, py0, pw,
                                  ph, imode, 0, have_left, have_above,
                                  False, False, r.bd, 0, False, -1)
-        use_wedge = bool(ii_wedge >> 4)
-        mask = I.interintra_mask(interintra - 1, bw4 * 4, bh4 * 4,
-                                 use_wedge, ii_wedge & 15)
-        return I.mask_blend(mask, ipred, inter_pred, r.bd, ssx, ssy, True)
+        if ii_wedge >> 4:  # the luma block's wedge, subsampled for chroma
+            mask = I.wedge_mask(bw4 * 4, bh4 * 4, ii_wedge & 15, 0)
+            return I.mask_blend(mask, ipred, inter_pred, r.bd, ssx, ssy,
+                                True)
+        # the smooth masks are built at the plane block's size and not
+        # subsampled [SPEC §7.11.3.13-14]
+        mask = I.interintra_mask(interintra - 1, pw, ph)
+        return I.mask_blend(mask, ipred, inter_pred, r.bd, 0, 0, True)
 
     # -- OBMC ---------------------------------------------------------------
     def _obmc(self, by, bx, bw4, bh4):

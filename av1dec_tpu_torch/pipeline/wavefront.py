@@ -212,9 +212,16 @@ def _palette_pred(plans, sub_x, sub_y, plane, mi_r, mi_c, x, y, w, h):
     bsz = int(bsize[bs_r, bs_c])
     bw = (_BLOCK_W4[bsz] * 4) >> sub_x
     bh = (_BLOCK_H4[bsz] * 4) >> sub_y
-    cmap = plans.color_map[off: off + bw * bh].reshape(bh, bw)
     ox = x - ((bs_c * 4) >> sub_x)
     oy = y - ((bs_r * 4) >> sub_y)
+    # a chroma map under 4 samples wide (high) — a 4x16 or 16x4 block's
+    # in 4:2:0 — covers the block pair's 4 chroma samples from the pair's
+    # start, 2 before this block's own [SPEC §5.11.49 palette_tokens]
+    if bw < 4:
+        bw, ox = bw + 2, ox + 2
+    if bh < 4:
+        bh, oy = bh + 2, oy + 2
+    cmap = plans.color_map[off: off + bw * bh].reshape(bh, bw)
     idxs = cmap[oy: oy + h, ox: ox + w]
     comp = 0 if plane == 0 else plane  # 1 -> U colors, 2 -> V colors
     return colors[comp][idxs].astype(np.int64)

@@ -81,15 +81,36 @@ Phases (each raises on failure, so the script exits non-zero):
       of frames 0-1 at data=2 against the manifest;
    e. NCCL: one rank whose backend the default rule picks (NCCL: it has
       a card of its own) runs c at n_space 1 (fill-only halos) through
-      the CUDA-tensor path of the collectives.
+      the CUDA-tensor path of the collectives;
+8. compound frames and the last gaps:
+   a. `api.Decoder(device="cuda")` on the committed 1080p compound
+      stream (lag 8, compound blocks in 8 of 9 inter frames): every
+      frame's MD5 and recon path against the manifest, all on the device
+      path, the compound MC lanes counted (at least 1), one `cdef_frame`
+      launch per frame with CDEF on; then a warm timed pass
+      (`fps_1080p_compound`, mean key- and inter-frame ms) and the MC
+      pass of the last frame with compound lanes (device ms, kernels,
+      wrapper ms, bound), as in 5;
+   b. the key frame of the cq-40 host stream on the device path, its
+      Wiener restoration on the device, against the manifest;
+   c. `decode_stream_batched` on `screen`'s TU 0, an intra block copy
+      key frame, inline on the host pixel path, against the manifest;
+   d. `parallel.sharded_cdef.cdef_local` on phase 3's frame 0 in 2 and 4
+      column shards on the card repeated, against `_cdef_core`, every
+      `cdef_filter` launch byte-equal to `_filter_plane` on the same
+      shard, maps and pad, and the kernel's times on shard 0 of 2;
+   e. `Decoder(DecoderConfig(space_shards=2))` on the intra stream's TU
+      0, with the card twice as the process's devices (the shard path,
+      each launch checked as in d) and with its own devices (one card:
+      the fewer-devices warning and `cdef_frame`), against the manifest.
 
-The `launches` of the `{"kernels": [...]}` line count phases 3, 5 and 6
-for `cdef_frame`, and phase 7's checked calls (counted in each worker
-process) for `cdef_filter`.  `cdef_frame`'s times there are phase 2's
-(1080p 4:2:0, random all-tap strengths); `cdef_filter`'s are those of
-the shapes its launches have, rank 0's call at n_space 2 in 7c (luma
-1080x960 and chroma 540x480, with halo pads), and its max_abs_err
-covers phases 2 and 7.
+The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
+8a-c and 8e for `cdef_frame`, and phase 7's checked calls (counted in
+each worker process) and phase 8d-e for `cdef_filter`.  `cdef_frame`'s
+times there are phase 2's (1080p 4:2:0, random all-tap strengths);
+`cdef_filter`'s are those of the shapes of its `Decoder`-path launches,
+shard 0 of 2 in 8d (luma 1080x960 and chroma 540x480, with pads), and
+its max_abs_err covers phases 2 and 8 (phase 7 raises on any).
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -108,6 +129,11 @@ TESTDATA = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
 BIG_INTER = "bench_1080p_inter"
 BIG_HOST = "bench_1080p_host"
+BIG_HOST40 = "bench_1080p_host_cq40"
+BIG_COMPOUND = "bench_1080p_compound"
+BIGS = (BIG, BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND)
+SCREEN = "screen"  # phase 8c: its TU 0 is an intra block copy key frame
+SHARDS = (2, 4)  # phase 8d: in-process column shards of sharded CDEF
 INTER_FRAMES = 7  # inter frames of BIG_INTER (after its key frame)
 CHECKPOINT_TU = 4  # phase 7a saves the decode of BIG_INTER before it
 GOP_TUS = 4  # phase 7b: the first TUs (one GOP each) of BIG
@@ -222,6 +248,16 @@ def filter_ops(apply, pri_on, sec_on, px):
     per_px = torch.where(apply, CDEF_OPS_PER_PX + CDEF_OPS_PER_TAP * taps,
                          torch.zeros_like(taps))
     return int(per_px.sum()) * px
+
+
+def filter_bytes(H, W, n_apply, padded):
+    """Bytes one CDEF plane filter must move: the apply map at every
+    pixel and the other 5 maps (strengths, direction, shifts) only at
+    the `n_apply` pixels that apply (the others copy), the source read
+    once (a caller's [H+4, W+4] pad holds the centre pixels too, so the
+    plane is not counted beside it) and the output written once."""
+    src = (H + 4) * (W + 4) if padded else H * W
+    return 4 * (src + 2 * H * W + 5 * n_apply)
 
 
 def frame_work(planes, gates, bd, subx, suby):
@@ -420,8 +456,7 @@ def phase_kernels(dev, int_rate):
         k = kernel_ms(run, "cdef_filter_kernel", 50)
         w = cuda_ms(run, 50)
         p = cuda_ms(lambda: cdef._filter_plane(plane, *maps, cs), 5)
-        # each input read once (plane + 6 maps), the output written once
-        nb = H * W * 4 * (1 + 6 + 1)
+        nb = filter_bytes(H, W, int((maps[5] != 0).sum()), False)
         op = filter_ops(app, pon, son, 64)
         log(f"cdef_filter {H}x{W}: device {k:.4f} ms (wrapper-inclusive "
             f"{w:.4f} ms), plain {p:.4f} ms")
@@ -526,8 +561,7 @@ def phase_entry_point(manifest, dev):
     from av1dec_tpu_torch.config import DecoderConfig
     from av1dec_tpu_torch.container import read_ivf
     from av1dec_tpu_torch.ops.kernels import cdef
-    names = sorted(n for n in manifest
-                   if n not in (BIG, BIG_INTER, BIG_HOST))
+    names = sorted(n for n in manifest if n not in BIGS)
     n_cdef = n_host = 0
     cdef.launches = cdef.frame_launches = 0
     for name in names:
@@ -892,9 +926,9 @@ def phase_host(manifest, dev):
 
 def shard_work(planes, gates, bd, subx, suby, n, s):
     """(bytes, int32 operations) of the 3 `cdef_filter` launches of space
-    shard `s` of `n`: each shard plane, its 6 maps and its bordered pad
-    read once and its output written once; the taps that are on in each
-    of the shard's units with something to apply."""
+    shard `s` of `n`: `filter_bytes` of each shard plane with its
+    bordered pad; the taps that are on in each of the shard's units with
+    something to apply."""
     from av1dec_tpu_torch.ops.kernels.cdef import _directions, _ilog2
     y_pri, y_sec, uv_pri, uv_sec = gates
     _, var = _directions(planes[0], bd)
@@ -902,16 +936,18 @@ def shard_work(planes, gates, bd, subx, suby, n, s):
                           (y_pri * (4 + _ilog2(var >> 6)) + 8) >> 4, 0)
     uw = y_pri.shape[1] // n
     cols = slice(s * uw, (s + 1) * uw)
-    ops = filter_ops(((pri_adj > 0) | (y_sec > 0))[:, cols],
-                     (pri_adj > 0)[:, cols], (y_sec > 0)[:, cols], 64)
+    y_app = ((pri_adj > 0) | (y_sec > 0))[:, cols]
+    uv_app = ((uv_pri > 0) | (uv_sec > 0))[:, cols]
+    uv_px = 64 >> (subx + suby)
+    ops = filter_ops(y_app, (pri_adj > 0)[:, cols], (y_sec > 0)[:, cols],
+                     64)
     if len(planes) > 1:
-        ops += 2 * filter_ops(((uv_pri > 0) | (uv_sec > 0))[:, cols],
-                              (uv_pri > 0)[:, cols], (uv_sec > 0)[:, cols],
-                              64 >> (subx + suby))
+        ops += 2 * filter_ops(uv_app, (uv_pri > 0)[:, cols],
+                              (uv_sec > 0)[:, cols], uv_px)
     nbytes = 0
-    for p in planes:
-        H, W = p.shape[0], p.shape[1] // n
-        nbytes += 4 * (H * W * 8 + (H + 4) * (W + 4))
+    for pl, p in enumerate(planes):
+        n_apply = int(uv_app.sum()) * uv_px if pl else int(y_app.sum()) * 64
+        nbytes += filter_bytes(p.shape[0], p.shape[1] // n, n_apply, True)
     return nbytes, ops
 
 
@@ -1039,6 +1075,293 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
     return launches, path
 
 
+def read_tus(name):
+    from av1dec_tpu_torch.container import read_ivf
+    return [d for _, d in read_ivf(os.path.join(TESTDATA, name + ".ivf"))]
+
+
+def phase_compound(manifest, dev, int_rate):
+    """8a: compound frames at 1080p through `Decoder(device="cuda")`;
+    returns the `cdef_frame` launches of the checked pass."""
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.ops.kernels import cdef, mc
+    from av1dec_tpu_torch.pipeline import device_recon
+    datas = read_tus(BIG_COMPOUND)
+    want = manifest[BIG_COMPOUND]["frames"]
+    want_paths = manifest[BIG_COMPOUND]["paths"]
+    n_cdef = cdef_frames(datas)
+    seen = []
+    real = device_recon.mc_into
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+
+    def decode():
+        dec = Decoder(device=dev)
+        md5s = []
+        for tu in datas:
+            md5s += [f.display_md5() for f in dec.decode(tu)]
+        dec.close()
+        return md5s, dec.stats
+
+    cdef.launches = cdef.frame_launches = 0
+    device_recon.mc_into = keep
+    t0 = time.perf_counter()
+    try:
+        got, stats = decode()
+    finally:
+        device_recon.mc_into = real
+    t_first = time.perf_counter() - t0
+    launches = cdef.frame_launches
+    check_launches(cdef, n_cdef, "compound")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{BIG_COMPOUND} frames differ from the "
+                             f"manifest: {bad} of {len(want)}")
+    paths = [s["recon_path"] for s in stats]
+    if paths != want_paths:
+        raise AssertionError(f"{BIG_COMPOUND}: recon paths {paths}, the "
+                             f"manifest's {want_paths}")
+    comp = [sum(n for _, c, n in cfg[0] if c) for *_, cfg in seen]
+    if sum(comp) < 1:
+        raise AssertionError(f"{BIG_COMPOUND}: no compound MC lane")
+    log(f"compound: {len(got)}/{len(want)} frames of {BIG_COMPOUND} match "
+        f"the manifest, all on the device path; {sum(comp)} compound MC "
+        f"lanes in {sum(c > 0 for c in comp)} of {len(seen)} MC passes; "
+        f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
+        f"cdef_filter launches 0; first pass {t_first:.3f} s")
+
+    t0 = time.perf_counter()
+    _, stats = decode()
+    dt = time.perf_counter() - t0
+
+    def mean(key, intra):
+        v = [s[key] for s in stats if s["intra"] == intra]
+        return sum(v) / len(v)
+    log(json.dumps({"fps_1080p_compound": len(want) / dt, "seconds": dt,
+                    "frames": len(want),
+                    "key_frame_ms": mean("ms", 1),
+                    "inter_frame_ms": mean("ms", 0),
+                    "inter_plan_ms": mean("inter_plan_ms", 0),
+                    "compound_lanes": sum(comp),
+                    "card": card_line()}))
+
+    # the MC pass of the last frame with compound lanes
+    last = max(i for i, c in enumerate(comp) if c)
+    frame, ref_flat, lanes, cfg = seen[last]
+    frame = frame.clone()
+
+    def run():
+        mc.mc_into(frame, ref_flat, lanes, cfg)
+    k_ms, n_k = device_ms(run, 20)
+    w_ms = cuda_ms(run, 20)
+    nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
+    b, by = bound(nbytes, ops, int_rate)
+    log(json.dumps({"mc_pass_compound": {
+        "mc_pass": last, "lanes": n_lanes, "compound_lanes": comp[last],
+        "pixels": px, "buckets": len(cfg[0]), "device_ms": k_ms,
+        "kernels": n_k, "wrapper_ms": w_ms, "bound_ms": b, "bound_by": by,
+        "bytes": nbytes, "int32_ops": ops, "card": card_line()}}))
+    return launches
+
+
+def phase_wiener(manifest, dev):
+    """8b: the key frame of the cq-40 host stream, whose Wiener units'
+    stripe-boundary rows the reference's device pass got wrong, on the
+    device path (device Wiener) against the manifest; returns the
+    `cdef_frame` launches."""
+    from av1dec_tpu_torch import api
+    from av1dec_tpu_torch.ops.kernels import cdef
+    datas = read_tus(BIG_HOST40)[:1]
+    kept = []
+    real = api.DeviceRecon
+
+    class Keep(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+    cdef.launches = cdef.frame_launches = 0
+    api.DeviceRecon = Keep
+    t0 = time.perf_counter()
+    try:
+        dec = api.Decoder(device=dev)
+        got = [f.display_md5() for f in dec.decode(datas[0])]
+        dec.close()
+    finally:
+        api.DeviceRecon = real
+    dt = time.perf_counter() - t0
+    check_launches(cdef, cdef_frames(datas), "cq-40 key frame")
+    st = dec.stats[0]
+    if got != manifest[BIG_HOST40]["frames"][:1] or \
+            st["recon_path"] != "device" or not st["lr"] or \
+            not kept[0]._lr_on_device:
+        raise AssertionError(f"{BIG_HOST40} TU 0: equal to the manifest "
+                             f"{got == manifest[BIG_HOST40]['frames'][:1]}"
+                             f", path {st['recon_path']}, LR {st['lr']}, "
+                             f"Wiener on the device {kept[0]._lr_on_device}")
+    log(f"Wiener: {BIG_HOST40} key frame on the device path, LR (Wiener) "
+        f"on the device, matches the manifest; cdef_frame launches "
+        f"{cdef.frame_launches}; {dt:.3f} s")
+    return cdef.frame_launches
+
+
+def phase_batched_host(manifest, dev):
+    """8c: `decode_stream_batched` on `screen`'s TU 0, an intra block
+    copy key frame, decoded inline on the host pixel path; returns the
+    `cdef_frame` launches."""
+    from av1dec_tpu_torch.api import decode_stream_batched, display_md5
+    from av1dec_tpu_torch.bindings import NativeParser
+    from av1dec_tpu_torch.ops.kernels import cdef
+    datas = read_tus(SCREEN)[:1]
+    parser = NativeParser()
+    hdr, = parser.parse_tu(datas[0])
+    seq = parser.seq
+    parser.close()
+    cdef.launches = cdef.frame_launches = 0
+    tm = {}
+    out = decode_stream_batched(datas, device=dev, batch=4, timings=tm)
+    check_launches(cdef, cdef_frames(datas), "batched host frame")
+    got = display_md5(out[0], seq["bit_depth"], hdr["upscaled_width"],
+                      hdr["frame_height"],
+                      (seq["subsampling_x"], seq["subsampling_y"]))
+    if len(out) != 1 or got != manifest[SCREEN]["frames"][0] or \
+            manifest[SCREEN]["paths"][0] != "host" or not tm["host_path"]:
+        raise AssertionError(f"batched {SCREEN} TU 0: equal to the "
+                             f"manifest {got == manifest[SCREEN]['frames'][0]}"
+                             f", host path {tm['host_path']:.3f} s")
+    log(f"batched entry point: {SCREEN} TU 0 (intra block copy) inline on "
+        f"the host pixel path, matches the manifest; host path "
+        f"{tm['host_path'] * 1e3:.3f} ms; cdef_frame launches "
+        f"{cdef.frame_launches}")
+    return cdef.frame_launches
+
+
+def phase_space_shards(manifest, dev, int_rate, frame0):
+    """8d-e: `cdef_local` on phase 3's frame 0 in 2 and 4 column shards
+    on the card repeated, and `Decoder(DecoderConfig(space_shards=2))`
+    on the intra stream's TU 0, once with the card repeated as its shard
+    devices and once with the default devices (one card: the fallback);
+    every `cdef_filter` launch held against `_filter_plane` on the same
+    shard, maps and pad.  Returns (`cdef_frame` launches, `cdef_filter`
+    launches, the kernel's entry: its times on shard 0's launches at 2
+    shards)."""
+    import logging
+
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.config import DecoderConfig
+    from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.parallel import sharded_cdef
+    from av1dec_tpu_torch.parallel.worker import plane_md5s
+    planes, *gates, bd, damping, sx, sy = frame0
+    whole = plane_md5s(cdef._cdef_core(planes, *gates, bd, damping, sx,
+                                       sy))
+    want = manifest[BIG]["frames"][:1]
+    datas = read_tus(BIG)[:1]
+    calls, errs = [], []
+    real = cdef.filter_plane
+    real_devices = sharded_cdef.local_devices
+
+    def checked(plane, *args, pad=None):
+        out = real(plane, *args, pad=pad)
+        ref = cdef._filter_plane(plane, *args, pad)
+        errs.append(int((out - ref).abs().max()))
+        calls.append((plane, args, pad))
+        return out
+
+    def decode():
+        dec = Decoder(DecoderConfig(space_shards=2), device=dev)
+        got = [f.display_md5() for f in dec.decode(datas[0])]
+        dec.close()
+        return got
+
+    filter_launches = 0
+    cdef.filter_plane = checked
+    try:
+        for n in SHARDS:
+            cdef.launches = cdef.frame_launches = 0
+            out = sharded_cdef.cdef_local(planes, tuple(gates) +
+                                          (damping, sx, sy), bd, [dev] * n)
+            if plane_md5s(out) != whole or cdef.launches != 3 * n or \
+                    cdef.frame_launches or max(errs):
+                raise AssertionError(
+                    f"cdef_local at {n} shards: equal to _cdef_core "
+                    f"{plane_md5s(out) == whole}, cdef_filter launches "
+                    f"{cdef.launches} ({3 * n} expected), max abs err "
+                    f"against _filter_plane {max(errs)}")
+            filter_launches += cdef.launches
+            if n == SHARDS[0]:
+                shard0 = calls[:3]
+        cdef.launches = cdef.frame_launches = 0
+        before = sharded_cdef.local_frames
+        sharded_cdef.local_devices = lambda d: [dev, dev]
+        try:
+            got = decode()
+        finally:
+            sharded_cdef.local_devices = real_devices
+        if got != want or cdef.launches != 6 or cdef.frame_launches or \
+                sharded_cdef.local_frames != before + 1 or max(errs):
+            raise AssertionError(
+                f"Decoder space_shards=2 on the card repeated: equal to "
+                f"the manifest {got == want}, cdef_filter launches "
+                f"{cdef.launches} (6 expected), cdef_frame launches "
+                f"{cdef.frame_launches}, max abs err {max(errs)}")
+        filter_launches += cdef.launches
+    finally:
+        cdef.filter_plane = real
+    n_checked = len(errs)
+
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+    logger = logging.getLogger("av1dec_tpu_torch")
+    handler = Catch(logging.WARNING)
+    logger.addHandler(handler)
+    cdef.launches = cdef.frame_launches = 0
+    try:
+        got = decode()
+    finally:
+        logger.removeHandler(handler)
+    frame_launches = cdef.frame_launches
+    if got != want or cdef.launches or frame_launches != 1 or \
+            not any("device(s) for 2 shards" in w for w in warned):
+        raise AssertionError(f"Decoder space_shards=2 on one card: equal "
+                             f"to the manifest {got == want}, cdef_frame "
+                             f"launches {frame_launches}, cdef_filter "
+                             f"launches {cdef.launches}, warnings {warned}")
+    log(f"space_shards: cdef_local at {' and '.join(map(str, SHARDS))} "
+        f"shards on the card repeated equals _cdef_core on {BIG} frame 0; "
+        f"Decoder(space_shards=2) with the card twice as the process's "
+        f"devices matches the manifest on TU 0; {filter_launches} "
+        f"cdef_filter launches, each "
+        f"({n_checked}) byte-equal to _filter_plane on its shard, maps and "
+        f"pad; with the default devices (one card) it logs "
+        f"'{warned[0]}', runs cdef_frame and matches the manifest")
+
+    def run():
+        for plane, args, pad in shard0:
+            real(plane, *args, pad=pad)
+
+    def plain():
+        for plane, args, pad in shard0:
+            cdef._filter_plane(plane, *args, pad)
+    k = kernel_ms(run, "cdef_filter_kernel", 50)
+    w = cuda_ms(run, 50)
+    p = cuda_ms(plain, 5)
+    nbytes, ops = shard_work(planes, gates, bd, sx, sy, SHARDS[0], 0)
+    b, by = bound(nbytes, ops, int_rate)
+    shapes = [tuple(plane.shape) for plane, _, _ in shard0]
+    log(json.dumps({"space_shards_cdef": {
+        "shards": SHARDS[0], "shard": 0, "shapes": shapes,
+        "kernel_ms": k, "wrapper_ms": w, "plain_ms": p, "bound_ms": b,
+        "bound_by": by, "share_of_bound": b / k, "card": card_line()}}))
+    return frame_launches, filter_launches, {
+        "max_abs_err": max(errs), "ms": k, "plain_ms": p, "bound_ms": b,
+        "bound_by": by}
+
+
 def timed_phase(name, fn, *args):
     """fn(*args), with its wall seconds logged."""
     t0 = time.perf_counter()
@@ -1076,11 +1399,20 @@ def main():
     launches += timed_phase("5 (with 7a)", phase_inter, manifest, dev,
                             int_rate)
     launches += timed_phase("6", phase_host, manifest, dev)
-    filter_launches, path = timed_phase("7b-e", phase_scale_out, manifest,
-                                        dev, int_rate, frame0)
+    filter_launches, _ = timed_phase("7b-e", phase_scale_out, manifest,
+                                     dev, int_rate, frame0)
+    launches += timed_phase("8a", phase_compound, manifest, dev, int_rate)
+    launches += timed_phase("8b", phase_wiener, manifest, dev)
+    launches += timed_phase("8c", phase_batched_host, manifest, dev)
+    n_frame, n_filter, path = timed_phase("8d-e", phase_space_shards,
+                                          manifest, dev, int_rate, frame0)
+    launches += n_frame
+    filter_launches += n_filter
     # the per-plane kernel's entry: its times at the shapes of its
-    # launches (phase 7); its error over phase 2 (phase 7 raises on any)
-    path["max_abs_err"] = filt["max_abs_err"]
+    # Decoder-path launches (phase 8d: shard 0 of 2 in one process, the
+    # shapes of 7c's rank 0); its error over phases 2 and 8 (phase 7
+    # raises on any)
+    path["max_abs_err"] = max(path["max_abs_err"], filt["max_abs_err"])
 
     def line(name, replaces, k, n):
         return {"name": name, "route": "cuda",

@@ -8,11 +8,15 @@
   Decoder's own save and resume;
 - the blob is an `.npz` read without pickle: garbage, a pickle (whose
   payload must not run), another format version and a missing entry
-  are refused with ValueError.
+  are refused with ValueError;
+- a native state cut short, or with a vector length beyond its bytes,
+  is refused with ValueError before anything is allocated, and the
+  decoder that refused it decodes on from its own state.
 """
 import io
 import json
 import pickle
+import struct
 
 import numpy as np
 import pytest
@@ -163,3 +167,45 @@ def test_load_state_rejects_other_version_and_missing_entry(native_lib):
     for edit in (bump, lambda a: a.pop("native"), lambda a: a.pop("f0_p1")):
         with pytest.raises(ValueError):
             _load(_rewrite(blob, edit))
+
+
+def _vector_length_at(native, n_mi, n_mv):
+    """Offset of the first saved segment-id vector's int64 length in a
+    native state: n_mi bytes follow it, then the motion-vector vector's
+    length n_mv."""
+    key = struct.pack("<q", n_mi)
+    at = native.find(key)
+    while at >= 0:
+        nxt = at + 8 + n_mi
+        if native[nxt:nxt + 8] == struct.pack("<q", n_mv):
+            return at
+        at = native.find(key, at + 1)
+    raise AssertionError("no segment-id vector in the native state")
+
+
+@pytest.mark.parametrize("how", ["truncated", "huge_vector"])
+def test_load_state_rejects_bad_native_state(how, native_lib):
+    from av1dec_tpu_torch.api import Decoder
+    from torch_port_helpers import parse
+    blob = _blob()
+    with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+        native = z["native"].tobytes()
+    _, hdr, _ = parse("multi", "torch")[0]
+    rows, cols = hdr["mi_rows"], hdr["mi_cols"]
+    at = _vector_length_at(native, rows * cols,
+                           ((rows + 1) // 2) * ((cols + 1) // 2) * 2)
+    if how == "truncated":
+        bad = native[:at + 8 + rows * cols // 2]
+    else:
+        bad = native[:at] + struct.pack("<q", 1 << 62) + native[at + 8:]
+    blob_bad = _rewrite(blob, lambda a: a.__setitem__(
+        "native", np.frombuffer(bad, np.uint8)))
+    data = tus("multi")
+    dec = Decoder(device="cpu")
+    got = [f.display_md5() for f in dec.decode(data[0])]
+    with pytest.raises(ValueError):
+        dec.load_state(blob_bad)
+    for tu in data[1:]:
+        got += [f.display_md5() for f in dec.decode(tu)]
+    dec.close()
+    assert got == manifest()["multi"]["frames"]

@@ -1,6 +1,11 @@
 """Deblock, Wiener LR and superres of av1dec_tpu_torch == av1dec_tpu's,
 exactly, on edge maps and filter arguments from the committed streams
-and on random ones (8- and 10-bit)."""
+and on random ones (8- and 10-bit); and the device Wiener pass ==
+`ops/spec/lr.lr_frame` (the spec model, which libaom matches) at a
+1080p frame's restoration-unit and stripe geometry, where the JAX
+package's pass is not: rows next to a unit-row boundary read the next
+unit's rows, which must be filtered with their own output row's
+taps."""
 import numpy as np
 import pytest
 import torch
@@ -117,3 +122,52 @@ def test_superres_matches_jax(bd, native_lib):
                       for c, t in args], bd)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("plane", [0, 1, 2])
+def test_wiener_matches_lr_frame_at_1080p_unit_rows(plane):
+    """Synthetic planes and per-unit taps (some units off) on the
+    geometry of `bench_1080p_host_cq40`'s key frame (1920x1080 4:2:0,
+    luma units of 256, chroma units of 128: unit rows, and stripe
+    boundaries, at chroma rows 124, 252 and 380)."""
+    import types
+
+    from av1dec_tpu_torch.ops.kernels.lr import wiener_plane
+    from av1dec_tpu_torch.ops.spec import lr as L
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    W, H = 1920, 1080
+    sizes = [256, 128, 128]
+    rng = np.random.default_rng(40 + plane)
+    sub = 1 if plane else 0
+    pw, ph = (W + sub) >> sub, (H + sub) >> sub
+    us = sizes[plane]
+    frt = [0, 0, 0]
+    frt[plane] = L.RESTORE_WIENER
+    hdr = {"lr": {"frame_restoration_type": frt,
+                  "loop_restoration_size": sizes},
+           "upscaled_width": W, "frame_width": W, "frame_height": H}
+    recs = []
+    for ur in range(L._count_units(us, ph)):
+        for uc in range(L._count_units(us, pw)):
+            on = L.RESTORE_WIENER if rng.random() < 0.8 else L.RESTORE_NONE
+            taps = rng.integers(-5, 10, 6)
+            recs.append([plane, ur, uc, on, *taps.tolist(), 0, 0, 0])
+    plans = types.SimpleNamespace(lr=np.asarray(recs, np.int64))
+    sch = types.SimpleNamespace(num_planes=3, sub_x=1, sub_y=1,
+                                valid_dims=[(H, W), (ph, pw), (ph, pw)])
+    args = DeviceRecon._lr_wiener_args(
+        types.SimpleNamespace(hdr=hdr, sch=sch, plans=plans))[plane]
+    cdef_p = _smooth_plane(rng, ph, pw, 8, noise=40)
+    pre_p = _smooth_plane(rng, ph, pw, 8, noise=40)
+    got = wiener_plane(torch.as_tensor(cdef_p), torch.as_tensor(pre_p),
+                       tuple(torch.as_tensor(a) for a in args), 8).numpy()
+    shapes = [(H, W), (ph, pw), (ph, pw)]
+    planes = [np.zeros(s, np.int64) for s in shapes]
+    pres = [np.zeros(s, np.int64) for s in shapes]
+    planes[plane], pres[plane] = cdef_p.astype(np.int64), \
+        pre_p.astype(np.int64)
+    want = L.lr_frame(planes, pres, {"subsampling_x": 1,
+                                     "subsampling_y": 1},
+                      hdr, plans, 8)[plane]
+    np.testing.assert_array_equal(got, want)
+    assert (got != cdef_p).any()

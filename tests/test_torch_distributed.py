@@ -11,7 +11,10 @@ one of 4), whose results the tests read:
   `cdef_sharded` over a 1x2 mesh, at n_space 2 (and 4 and 2 under 4
   ranks);
 - `decode_frames_sharded` of `multi`'s two frames over data=2 equals
-  `DeviceRecon.run("cpu")` and the manifest.
+  `DeviceRecon.run("cpu")` and the manifest;
+- in one process, `cdef_local` equals the whole-frame CDEF, and
+  `Decoder(DecoderConfig(space_shards=n))` decodes committed streams
+  equal to the manifest on the shard path, with its two fallbacks.
 """
 import numpy as np
 import pytest
@@ -170,10 +173,62 @@ def test_sharded_frames_match_device_recon_and_manifest(two):
         assert rec["frames"] == want
 
 
-def test_decoder_refuses_space_shards():
-    """The JAX Decoder's in-process `space_shards` has no counterpart in
-    the port's Decoder: it says so instead of filtering unsharded."""
+@pytest.mark.parametrize("n", [2, 4])
+def test_decoder_refuses_space_shards(n, caplog, monkeypatch, native_lib):
+    """`DecoderConfig.space_shards` in one process (once refused): with
+    the CPU repeated n times as the process's devices, the Decoder runs
+    CDEF in n column shards (`cdef_local`, counted) and decodes
+    committed streams equal to the manifest; too few devices (the CPU
+    once, as `local_devices` gives it) and a width that does not split
+    (`w136`) fall back to one device, each with its warning on the
+    `av1dec_tpu_torch` logger.  (The name is kept from the refusal
+    test this replaced, so that test records before and after it
+    compare.)"""
+    import logging
+
+    import torch
+
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.config import DecoderConfig
-    with pytest.raises(NotImplementedError, match="cdef_sharded"):
-        Decoder(DecoderConfig(space_shards=2), device="cpu")
+    from av1dec_tpu_torch.parallel import sharded_cdef
+
+    def decode(name):
+        dec = Decoder(DecoderConfig(space_shards=n), device="cpu")
+        got = []
+        for tu in tus(name):
+            got += [f.display_md5() for f in dec.decode(tu)]
+        dec.close()
+        assert got == manifest()[name]["frames"], name
+
+    assert sharded_cdef.local_devices("cpu") == [torch.device("cpu")]
+    before = sharded_cdef.local_frames
+    with caplog.at_level(logging.WARNING, logger="av1dec_tpu_torch"):
+        decode("cdef_mid")
+        monkeypatch.setattr(sharded_cdef, "local_devices",
+                            lambda dev: [torch.device(dev)] * n)
+        decode("w136")
+    assert sharded_cdef.local_frames == before
+    for name, frames in (("cdef_mid", 1), ("tiles", 1), ("c4", 8)):
+        before = sharded_cdef.local_frames
+        decode(name)
+        assert sharded_cdef.local_frames - before == frames, name
+    text = caplog.text
+    assert f"1 device(s) for {n} shards" in text
+    assert f"width 136 not divisible by 8*{n}" in text
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cdef_local_matches_whole_frame(n, cdef_input):
+    """`cdef_local` on the tiles frame, the CPU repeated n times, equals
+    the whole-frame `_cdef_core`."""
+    import torch
+
+    from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.parallel.sharded_cdef import cdef_local
+    _, planes, gates, bd = cdef_input
+    want = cdef._cdef_core(tuple(torch.as_tensor(p) for p in planes),
+                           *(torch.as_tensor(g) for g in gates[:4]), bd,
+                           *gates[4:])
+    got = cdef_local(planes, gates, bd, [torch.device("cpu")] * n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -19,9 +19,7 @@ WHOLE = ["config.py", "ops/tables_data.py", "ops/qm_data.py",
          "ops/spec/__init__.py", "ops/spec/intra.py", "ops/spec/itx.py",
          "ops/spec/dequant.py", "ops/spec/deblock.py", "ops/spec/cdef.py",
          "ops/spec/superres.py", "ops/spec/superres_filter.py",
-         "ops/spec/lr.py", "ops/inter_tables.py", "ops/spec/inter.py",
-         "ops/gaussian_seq.py", "ops/spec/film_grain.py",
-         "pipeline/inter_pred.py"]
+         "ops/spec/lr.py", "ops/gaussian_seq.py", "ops/spec/film_grain.py"]
 
 # (port module, reference module, top-level names that may differ)
 PARTIAL = [
@@ -30,7 +28,29 @@ PARTIAL = [
     # be forked), and only a dead worker's GOP is retried (a decode
     # error propagates)
     ("container.py", "container.py",
-     {"_decode_gop", "_run_jobs_elastic", "decode_gops_parallel"}),
+     {"_decode_gop", "_run_jobs_elastic", "decode_gops_parallel",
+      # the raw OBU probe accepts a sizeless last OBU, as the spec does
+      "_walks_as_obu_stream"}),
+    # libaom's compound and inter-intra masks and weights (the
+    # reference's differ from libaom's, ROADMAP queue 3): distance
+    # weights; the smooth inter-intra masks at the plane block's size,
+    # stepped by 128 / max(w, h); the wedge sign flip by the spec's
+    # average rule; the wide blocks' vertical wedges at x offsets 2, 4, 6
+    ("ops/spec/inter.py", "ops/spec/inter.py",
+     {"dist_weights", "interintra_mask", "wedge_mask", "WEDGE_CODEBOOK",
+      # the reference's all-zero sign-flip table: the port derives the
+      # sign in `wedge_mask`
+      "WEDGE_SIGNFLIP"}),
+    # libaom's wedge masters: the even and odd oblique ones swapped, the
+    # vertical one as libaom has it
+    ("ops/inter_tables.py", "ops/inter_tables.py",
+     {"WEDGE_MASTER_OBLIQUE_EVEN", "WEDGE_MASTER_OBLIQUE_ODD",
+      "WEDGE_MASTER_VERTICAL"}),
+    # the difference-weighted mask comes from the luma predictions and
+    # chroma takes it subsampled (the reference recomputes it per
+    # plane); the smooth inter-intra masks are not subsampled
+    ("pipeline/inter_pred.py", "pipeline/inter_pred.py",
+     {"InterPredictor"}),
     ("bindings.py", "bindings.py", {"_LIB_PATH", "_load"}),
     ("pipeline/wavefront.py", "pipeline/wavefront.py",
      {"build_schedule_fast"}),
@@ -49,12 +69,56 @@ PARTIAL = [
     ("pipeline/device_inter.py", "pipeline/device_inter.py", {"InterPlan"}),
     ("pipeline/recon.py", "pipeline/recon.py", {"FrameRecon"}),
 ]
+# reference top-level names each port module leaves out
+DROPPED = {
+    # the port builds its own library (`build_native`)
+    "bindings.py": {"rebuild_native"},
+    # the NumPy level-batch executor and its schedule oracle: the port's
+    # scan is `ops/kernels/wavefront.py`; `_alpha` stays
+    "pipeline/wavefront.py": {
+        "WavefrontRecon", "_cfl_adjust", "_dir_lut", "_edge_filter_batch",
+        "_gather_edges", "_level_for", "_paeth_batch", "_predict_dir",
+        "_predict_fi", "_predict_level", "_smooth_batch", "_upsample_batch",
+        "build_schedule_ref"},
+    # the chunked scan: the port runs one scan into a preallocated buffer
+    "ops/kernels/wavefront.py": {"CHUNK", "_ALL_FAMS", "_take3",
+                                 "run_wavefront", "run_wavefront_chunk"},
+    # the Pallas kernel and its tiling: `csrc/cdef_filter.cu` and
+    # `csrc/cdef_frame.cu` take their place
+    "ops/kernels/cdef.py": {"_TH", "_cdef_all", "_cdef_tile_kernel",
+                            "_filter_plane_pallas"},
+    # XLA's padded shape buckets: the port runs exact shapes
+    "pipeline/device_recon.py": {"_CAPS", "_cap", "_caps_for", "_pad_rows",
+                                 "_pow2", "run_device_batch"},
+    "pipeline/device_inter.py": {"_MC_CAPS"},
+    # the AV1DEC_DEVICE switch: the port passes the device explicitly;
+    # `_alpha` is imported from `pipeline/wavefront.py`
+    "pipeline/recon.py": {"_DEVICE", "_alpha", "device_mode",
+                          "set_device_mode"},
+}
 # methods of DeviceRecon copied as they are
 DR_METHODS = ["_needs_pre_cdef", "_residuals_flat_np", "_bucket_rows",
               "_palette_tensor", "_lr_wiener_args", "_superres_args",
               "finish_host"]
 # methods of InterPlan copied as they are
 IP_METHODS = ["_pack_refs", "_list_params", "_build_lanes"]
+# methods of InterPredictor copied as they are (all but predict_block,
+# which builds the difference-weighted mask from the luma predictions,
+# and _compound_blend, which takes it, and _interintra, which builds
+# the smooth masks at the plane's size)
+IPRED_METHODS = ["__init__", "rel_dist", "_tile_row_start",
+                 "_tile_col_start", "_ref_planes", "_gm_shear_params",
+                 "_pred_one", "_scaled", "_obmc", "_obmc_one"]
+# native sources repaired in the port: the checkpoint reader bounds
+# every vector before it allocates and commits only a whole blob
+# (capi.cc); the compound-mode context map, the one-neighbour
+# comp_ref_type context and the single-reference extra search over a
+# compound neighbour's two lists follow libaom (inter.cc); a chroma
+# palette map under 4 samples wide or high is widened by 2
+# (tile_decode.cc); a refreshed slot saves its frame's reference order
+# hints as they were before the refresh (headers.cc)
+NATIVE_REPAIRED = {("src", "capi.cc"), ("src", "inter.cc"),
+                   ("src", "tile_decode.cc"), ("src", "headers.cc")}
 # methods of FrameRecon copied as they are (the block walk `run`
 # included)
 FR_METHODS = ["g", "_alloc_view", "warp_for_block", "_block_origin",
@@ -100,9 +164,12 @@ def test_native_sources_byte_identical():
         b = os.path.join(_REPO, PORT, "native", sub)
         names = sorted(os.listdir(a))
         assert names == sorted(os.listdir(b))
-        match, mismatch, errors = filecmp.cmpfiles(a, b, names,
-                                                   shallow=False)
+        repaired = sorted(n for s, n in NATIVE_REPAIRED if s == sub)
+        match, mismatch, errors = filecmp.cmpfiles(
+            a, b, [n for n in names if n not in repaired], shallow=False)
         assert not mismatch and not errors, (mismatch, errors)
+        _, differ, errors = filecmp.cmpfiles(a, b, repaired, shallow=False)
+        assert differ == repaired and not errors
     assert filecmp.cmp(os.path.join(_REPO, REF, "native", "Makefile"),
                        os.path.join(_REPO, PORT, "native", "Makefile"),
                        shallow=False)
@@ -120,6 +187,7 @@ def test_partial_copies(port_rel, ref_rel, changed):
     ref = _defs(_ref_src(ref_rel))
     shared = sorted(set(port) & set(ref) - changed)
     assert shared, port_rel
+    assert set(ref) - set(port) - changed == DROPPED.get(port_rel, set())
     for name in shared:
         assert ast.dump(port[name]) == ast.dump(ref[name]), \
             f"{port_rel}: {name} differs from {REF}/{ref_rel}"
@@ -141,6 +209,16 @@ def test_inter_plan_methods_copied():
     port = _methods(_read(PORT, "pipeline/device_inter.py"), "InterPlan")
     ref = _methods(_ref_src("pipeline/device_inter.py"), "InterPlan")
     for name in IP_METHODS:
+        assert ast.dump(port[name]) == ast.dump(ref[name]), name
+
+
+def test_inter_predictor_methods_copied():
+    port = _methods(_read(PORT, "pipeline/inter_pred.py"), "InterPredictor")
+    ref = _methods(_ref_src("pipeline/inter_pred.py"), "InterPredictor")
+    assert set(port) == set(ref)
+    assert set(port) - set(IPRED_METHODS) == {
+        "predict_block", "_compound_blend", "_interintra"}
+    for name in IPRED_METHODS:
         assert ast.dump(port[name]) == ast.dump(ref[name]), name
 
 

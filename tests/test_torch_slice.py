@@ -9,10 +9,11 @@
   libaom oracle on every committed small stream;
 - inter frames with a tool the device path cannot take (OBMC, warped
   motion) decode on the host pixel path, equal to libaom, the device
-  path naming the tool; a frame with average or distance-weighted
-  compound raises NotImplementedError naming compound prediction; a
-  simple inter frame decodes on the device path, and the batched
-  all-intra decode refuses inter frames.
+  path naming the tool; compound frames (average, distance-weighted,
+  difference-weighted) decode equal to libaom on the paths the manifest
+  records; a simple inter frame decodes on the device path; the batched
+  all-intra decode refuses inter frames and decodes an intra block copy
+  key frame inline on the host pixel path.
 """
 import numpy as np
 import pytest
@@ -78,14 +79,13 @@ def test_manifest_matches_libaom(name):
     assert got == want
 
 
-def _decode_case(case, tmp_path, spec=None):
-    """The gen_inter_battery stream `case` (made from `spec`, by default
-    its own): (its path, a Decoder, the frames it showed, the error that
-    stopped it or None)."""
+def _decode_case(case, tmp_path):
+    """The gen_inter_battery stream `case`: (its path, a Decoder, the
+    frames it showed, the error that stopped it or None)."""
     import gen_inter_battery as gb
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.container import read_ivf
-    path = gb.gen_case(case, spec or gb.CASES[case], str(tmp_path))
+    path = gb.gen_case(case, gb.CASES[case], str(tmp_path))
     dec = Decoder(device="cpu")
     shown, err = [], None
     try:
@@ -115,14 +115,6 @@ def _decodes_on_host(case, tool, tmp_path):
                 np.asarray(p)[:r.shape[0], :r.shape[1]], r)
 
 
-def _raises_naming(case, tool, tmp_path, spec=None):
-    """A frame of the gen_inter_battery stream `case` raises, naming
-    `tool`; the frames before it decode."""
-    _, dec, shown, err = _decode_case(case, tmp_path, spec)
-    assert isinstance(err, NotImplementedError) and tool in str(err)
-    assert len(shown) >= 1 and dec.stats[0]["intra"]
-
-
 def test_inter_frame_raises_not_implemented(tmp_path):
     """OBMC frames: once refused, now on the host pixel path."""
     _decodes_on_host("obmconly", "OBMC", tmp_path)
@@ -134,13 +126,29 @@ def test_warped_inter_frame_raises_not_implemented(tmp_path):
     _decodes_on_host("warponly", "local warped motion", tmp_path)
 
 
-@pytest.mark.parametrize("case", ["c4", "c5"])
-def test_compound_inter_frame_raises_not_implemented(case, tmp_path):
-    """Distance-weighted (c4) and average (c5) compound frames stay off
-    the device path while the reference's compound differs from libaom."""
-    from gen_torch_testdata import COMPOUND_CASES
-    _raises_naming(case, "compound prediction", tmp_path,
-                   COMPOUND_CASES[case])
+@pytest.mark.parametrize("case", ["c4", "c5", "masked"])
+def test_compound_inter_frame_raises_not_implemented(case, native_lib):
+    """Compound frames decode (they were refused while the reference's
+    compound prediction differed from libaom): distance-weighted (c4)
+    and average (c5) compound on the device path, difference-weighted
+    (masked) on the host pixel path, every frame equal to libaom's MD5
+    on the recon path the manifest records, none refused.  (The name
+    is kept from the refusal test this replaced, so that test records
+    before and after it compare.)"""
+    from av1dec_tpu_torch.api import Decoder
+    want = manifest()[case]
+    dec = Decoder(device="cpu")
+    got = []
+    for tu in tus(case):
+        got += [f.display_md5() for f in dec.decode(tu)]
+    dec.close()
+    assert got == want["frames"]
+    paths = [s["recon_path"] for s in dec.stats]
+    assert paths == want["paths"]
+    assert ("host" in paths) == (case == "masked")
+    for s in dec.stats:
+        assert s["host_reason"] is None or \
+            "difference-weighted" in s["host_reason"]
 
 
 def test_simple_inter_frame_decodes(tmp_path):
@@ -178,3 +186,20 @@ def test_batched_decode_raises_on_inter_frame(native_lib):
     from av1dec_tpu_torch.api import decode_stream_batched
     with pytest.raises(NotImplementedError, match="all-intra"):
         decode_stream_batched(tus("t160x96"), device="cpu")
+
+
+def test_batched_decode_takes_host_intra_frame(native_lib):
+    """`screen`'s TU 0 is an intra block copy key frame, which the
+    device path refuses: the batched decode takes it inline on the host
+    pixel path, equal to the manifest."""
+    from av1dec_tpu_torch.api import decode_stream_batched
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    want = manifest()["screen"]
+    assert want["paths"][0] == "host"
+    (seq, hdr, plans), = parse("screen", "torch")[:1]
+    assert not DeviceRecon(seq, hdr, plans).supported()
+    tm = {}
+    out = decode_stream_batched(tus("screen")[:1], device="cpu", batch=4,
+                                timings=tm)
+    assert len(out) == 1 and tm["host_path"] > 0
+    assert _display(out[0], hdr, seq) == want["frames"][0]

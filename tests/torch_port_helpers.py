@@ -5,7 +5,8 @@ import os
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "av1dec_tpu_torch", "testdata")
-BIG = ("bench_1080p_intra", "bench_1080p_inter", "bench_1080p_host")
+BIG = ("bench_1080p_intra", "bench_1080p_inter", "bench_1080p_host",
+       "bench_1080p_host_cq40", "bench_1080p_compound")
 
 
 def manifest():

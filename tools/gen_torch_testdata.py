@@ -11,14 +11,22 @@ Writes `av1dec_tpu_torch/testdata/`:
 - `bench_1080p_host.ivf`: the same content and seed, HOST_FRAMES
   frames at cpu-used 3 and cq-level HOST_CQ with OBMC, warped and
   global motion and inter-intra on (HOST_TOOLS), so most inter frames
-  take the host pixel path;
+  take the host pixel path; `bench_1080p_host_cq40.ivf` (BIG_HOST40):
+  the same at cq-level 40, whose key frame meets the reference's device
+  Wiener fault;
+- `bench_1080p_compound.ivf` (BIG_COMPOUND): the inter content with
+  lag 8, alt-ref frames and distance-weighted compound on, at cpu-used
+  COMPOUND_CPU, so most inter frames carry compound blocks;
 - the inter streams of `tests/test_device_inter.py` (BATTERY), made by
   `tools/gen_inter_battery.py:gen_case` with its seeds, plus
   INTER_CASES: a low-delay 10-bit stream with the exotic inter tools
-  off (COMPOUND_CASES, the recipes of streams with compound blocks, are
-  not committed: see there), and HOST_CASES: the battery streams of
-  `tests/test_inter_bitexact.py` that the reference takes partly on its
-  host pixel path, or that carry film grain;
+  off, COMPOUND_CASES: streams with compound blocks (average,
+  distance-weighted and difference-weighted), and HOST_CASES: the
+  battery streams of `tests/test_inter_bitexact.py` that the reference
+  takes partly on its host pixel path, or that carry film grain;
+- `occlusion.ivf` (OCCLUSION_CASE): a disc moving over a moving
+  checkerboard, with compound wedge blocks, 4x16 palette blocks and
+  alt-ref groups;
 - `gops.ivf`: the 12-frame stream of three keyframe-delimited GOPs
   that `tests/test_gop_parallel.py` makes (GOP_CASE), for the port's
   GOP-parallel decode;
@@ -31,15 +39,19 @@ Writes `av1dec_tpu_torch/testdata/`:
   decode: the coded planes (Y only for monochrome) at the displayed
   size, as uint8 or uint16 bytes (`av1dec_tpu_torch.api.display_md5`),
   the file's size, `"inter": true` for the streams with inter frames,
-  and for HOST_CASES, `bench_1080p_host` and `gops` `"host": true` with
-  `"paths"`, the reference's recon path ("device" or "host") of every
-  coded frame.
+  and for HOST_CASES, PORT_CHECKED, `bench_1080p_host` and `gops`
+  `"host": true` with `"paths"`, the reference's recon path ("device"
+  or "host") of every coded frame.
 
 A stream is kept only when the JAX reference (`av1dec_tpu.api.Decoder`
 with the device path on, CPU backend) decodes it to the oracle's MD5s
 with no compound block, and takes every frame on its device path unless
-the stream is a HOST_CASES one, `bench_1080p_host` or `gops`; the script
-reports the streams it dropped.
+the stream is a HOST_CASES one, `bench_1080p_host` or `gops`.  The
+PORT_CHECKED streams (compound frames, and the cq-40 Wiener rows, which
+the reference decodes unlike libaom) are held instead to the port's
+decode on the CPU, which must equal the oracle (every frame of
+`bench_1080p_compound` on the device path).  The script reports the
+streams it dropped.
 
     JAX_PLATFORMS=cpu python tools/gen_torch_testdata.py [--skip-1080p]
         [--only NAME ...]
@@ -87,16 +99,71 @@ INTER_CASES = {
 }
 # gen_inter_battery.gen_case specs of streams with compound blocks (at
 # cpu 3 the encoder picks none in this content): "c4" with
-# distance-weighted compound, "c5" with average compound only.  The JAX
-# reference differs from libaom on both (ROADMAP queue 3), so neither is
-# committed; the port refuses their compound frames
-# (tests/test_torch_slice.py).
+# distance-weighted compound, "c5" with average compound only, "masked"
+# with masked compound on (at 192x128 the encoder picks
+# difference-weighted blocks, whose frames take the host pixel path; it
+# picks no compound wedge), and the inter-intra streams below.  The JAX
+# reference and its native parser differ from libaom on compound and
+# inter-intra frames (ROADMAP queue 3), so these streams are checked
+# with the port's repaired copies instead (PORT_CHECKED), and their
+# paths are the reference's rule applied to the port's parse.
 COMPOUND_CASES = {
     name: dict(w=128, h=96, n=10, cpu=1, lag=8,
                extra=_SIMPLE_TOOLS + [("enable-dist-wtd-comp", dist),
                                       ("auto-alt-ref", "1")])
     for name, dist in (("c4", "1"), ("c5", "0"))
 }
+COMPOUND_CASES["masked"] = dict(
+    w=192, h=128, n=12, cpu=1, lag=8,
+    extra=[t for t in _SIMPLE_TOOLS if t[0] != "enable-masked-comp"] +
+    [("enable-masked-comp", "1"), ("auto-alt-ref", "1")])
+# inter-intra, whose masks the reference builds unlike libaom:
+# "interintra" with libaom's default tools and masked and
+# distance-weighted compound (a wedge inter-intra block, difference-
+# weighted compound, OBMC), "interintra_smooth" with the wedge off
+# (smooth inter-intra masks)
+COMPOUND_CASES["interintra"] = dict(
+    w=192, h=128, n=14, cpu=1, lag=10,
+    extra=[("enable-interintra-comp", "1"), ("enable-masked-comp", "1"),
+           ("auto-alt-ref", "1"), ("enable-dist-wtd-comp", "1")])
+COMPOUND_CASES["interintra_smooth"] = dict(
+    w=192, h=128, n=10, cpu=0,
+    extra=[("enable-interintra-comp", "1"),
+           ("enable-interintra-wedge", "0"), ("enable-masked-comp", "0"),
+           ("enable-obmc", "0"), ("enable-warped-motion", "0")])
+
+# a disc moving over a moving checkerboard (occlusions): at cpu-used 0
+# with lag 16 and masked compound on, the encoder picks compound wedge
+# blocks, palette blocks (4x16 among them), and alt-ref groups whose
+# temporal motion field projects from future references
+OCCLUSION_CASE = "occlusion"
+
+
+def _encode_occlusion(path):
+    import aomffi
+    W, H, N = 192, 128, 16
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[:H, :W]
+    bg = (((xx // 6) + (yy // 9)) % 2) * 120 + 60
+    enc = aomffi.AomEncoder(
+        W, H, cpu_used=0, kf_max_dist=9999, lag=16, bitrate_kbps=400,
+        options=[("enable-masked-comp", "1"), ("auto-alt-ref", "1"),
+                 ("enable-obmc", "0"), ("enable-warped-motion", "0")])
+    pkts = []
+    for t in range(N):
+        y = np.roll(bg, 2 * t, axis=1).astype(np.int64)
+        disc = (xx - (150 - 5 * t)) ** 2 + (yy - (64 + 2 * t)) ** 2 < 900
+        y[disc] = (200 + 30 * np.sin(xx[disc] / 3.0)).astype(np.int64)
+        y = np.clip(y + rng.integers(-4, 5, y.shape), 0, 255) \
+            .astype(np.uint8)
+        u = np.full((H // 2, W // 2), 128, np.uint8)
+        v = np.full((H // 2, W // 2), 128, np.uint8)
+        u[disc[::2, ::2]] = 90
+        pkts += enc.encode(y, u, v, pts=t)
+    pkts += enc.flush()
+    enc.close()
+    aomffi.write_ivf(path, pkts, W, H)
+
 
 # tests/test_gop_parallel.py's stream: 128x96, key frames at TUs 0, 4
 # and 8 (kf_max_dist 4), synthetic frames seeded with 9; libaom's
@@ -205,10 +272,11 @@ def _encode_1080p(path):
     aomffi.write_ivf(path, pkts, W, H)
 
 
-def _encode_1080p_inter(path, frames=8, cpu=6, tools=_SIMPLE_TOOLS, cq=40):
+def _encode_1080p_inter(path, frames=8, cpu=6, tools=_SIMPLE_TOOLS, cq=40,
+                        lag=0):
     """Same content, encoder settings and seed as
     bench.ensure_inter_stream (by default: `frames`, `cpu`, the inter
-    `tools` options and `cq` vary it)."""
+    `tools` options, `cq` and the encoder's `lag` vary it)."""
     import aomffi
     W, H, FRAMES = 1920, 1080, frames
     rng = np.random.default_rng(17)
@@ -222,7 +290,7 @@ def _encode_1080p_inter(path, frames=8, cpu=6, tools=_SIMPLE_TOOLS, cq=40):
     base_v = (128 + 40 * np.cos(yy[::2, ::2] / 15.0)).clip(0, 255) \
         .astype(np.uint8)
     enc = aomffi.AomEncoder(
-        W, H, cpu_used=cpu, kf_max_dist=9999, lag=0, end_usage=3,
+        W, H, cpu_used=cpu, kf_max_dist=9999, lag=lag, end_usage=3,
         options=[("cq-level", str(cq))] + tools)
     pkts = []
     for i in range(FRAMES):
@@ -247,12 +315,32 @@ HOST_TOOLS = [("enable-obmc", "1"), ("enable-warped-motion", "1"),
               ("enable-global-motion", "1"),
               ("enable-interintra-comp", "1"),
               ("enable-masked-comp", "0")]
+# BIG_HOST at cq-level 40: its key frame has the Wiener restoration
+# units whose stripe-boundary rows the reference's device pass filters
+# unlike the spec (ROADMAP queue 3; repaired in the port's
+# ops/kernels/lr.py); no encode of this content at 640x576 or smaller
+# has two chroma restoration-unit rows, so none shows the fault
+BIG_HOST40 = "bench_1080p_host_cq40"
+# the 1080p compound stream: bench.py's inter content with lag 8,
+# alt-ref frames and distance-weighted compound on, OBMC, warp, masked
+# compound, inter-intra and global motion off; at cpu-used
+# COMPOUND_CPU most inter frames carry compound blocks
+BIG_COMPOUND = "bench_1080p_compound"
+COMPOUND_CPU = 1
+COMPOUND_FRAMES = 10
+COMPOUND_TOOLS = _SIMPLE_TOOLS + [("enable-dist-wtd-comp", "1"),
+                                  ("auto-alt-ref", "1")]
+# streams held to libaom through the port's decode (the reference's
+# differs from libaom on them)
+PORT_CHECKED = set(COMPOUND_CASES) | {BIG_COMPOUND, BIG_HOST40,
+                                      OCCLUSION_CASE}
 
 
 def _encode_inter(name, path):
     """A gen_inter_battery stream (its seed is the crc32 of `name`)."""
     import gen_inter_battery as gb
-    spec = INTER_CASES.get(name) or gb.CASES[name]
+    spec = INTER_CASES.get(name) or COMPOUND_CASES.get(name) or \
+        gb.CASES[name]
     if os.path.exists(path):
         os.remove(path)
     assert gb.gen_case(name, spec, os.path.dirname(path)) == path
@@ -310,6 +398,35 @@ def check_stream(path, host=False):
     return md5s, same, paths
 
 
+def check_stream_port(path):
+    """(oracle per-frame MD5s, True when the port's decoder on the CPU
+    decodes every frame to the oracle's pixels, the port's recon path of
+    every coded frame).  For the streams whose compound frames (or
+    Wiener stripe rows) the reference decodes unlike libaom: the port's
+    repaired copies are held to libaom instead, and its paths are the
+    reference's (`device_inter.ineligible_reason` refuses what the
+    reference's `frame_eligible` refuses)."""
+    import aomffi
+    from av1dec_tpu_torch.api import Decoder
+    from av1dec_tpu_torch.container import read_ivf
+    oracle = aomffi.oracle_decode_ivf(path)
+    dec = Decoder(device="cpu")
+    frames = []
+    for _, tu in read_ivf(path):
+        frames += dec.decode(tu)
+    paths = [s["recon_path"] for s in dec.stats]
+    dec.close()
+    same = len(frames) == len(oracle)
+    md5s = []
+    for fr, ora in zip(frames, oracle):
+        ref = [ora.y, ora.u, ora.v][:len(fr.planes)]
+        same = same and all(
+            np.array_equal(np.asarray(p)[:r.shape[0], :r.shape[1]], r)
+            for p, r in zip(fr.planes, ref))
+        md5s.append(display_md5(ref, ora.bit_depth))
+    return md5s, same, paths
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-1080p", action="store_true")
@@ -324,9 +441,10 @@ def main():
             manifest = json.load(f)
     cases = dict(SPEC_CASES, **EXTRA_CASES)
     names = args.only or (sorted(cases) + BATTERY + sorted(INTER_CASES) +
-                          HOST_CASES + [GOP_CASE])
+                          HOST_CASES + [GOP_CASE] + sorted(COMPOUND_CASES) +
+                          [OCCLUSION_CASE])
     if not args.skip_1080p and not args.only:
-        names = names + [BIG, BIG_INTER, BIG_HOST]
+        names = names + [BIG, BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND]
     for name in names:
         path = os.path.join(OUT, name + ".ivf")
         if name == BIG:
@@ -335,24 +453,39 @@ def main():
             _encode_1080p_inter(path)
         elif name == BIG_HOST:
             _encode_1080p_inter(path, HOST_FRAMES, 3, HOST_TOOLS, HOST_CQ)
+        elif name == BIG_HOST40:
+            _encode_1080p_inter(path, HOST_FRAMES, 3, HOST_TOOLS, 40)
+        elif name == BIG_COMPOUND:
+            _encode_1080p_inter(path, COMPOUND_FRAMES, COMPOUND_CPU,
+                                COMPOUND_TOOLS, 40, lag=8)
         elif name == GOP_CASE:
             _encode_gops(path)
+        elif name == OCCLUSION_CASE:
+            _encode_occlusion(path)
         elif name in cases:
             _encode_small(name, cases[name], path)
         else:
             _encode_inter(name, path)
-        host = name in HOST_CASES or name in (BIG_HOST, GOP_CASE)
-        ref, same, paths = check_stream(path, host)
+        host = name in HOST_CASES or name in PORT_CHECKED or \
+            name in (BIG_HOST, GOP_CASE)
+        if name in PORT_CHECKED:
+            ref, same, paths = check_stream_port(path)
+            if name == BIG_COMPOUND:
+                same = same and all(p == "device" for p in paths)
+        else:
+            ref, same, paths = check_stream(path, host)
         size = os.path.getsize(path)
         if not same:
-            print(f"DROP {name}: JAX reference != libaom, or a compound "
-                  f"block, or (not a host case) a frame on the host path",
-                  flush=True)
+            print(f"DROP {name}: the reference (or, for PORT_CHECKED, the "
+                  f"port) != libaom, or a compound block outside "
+                  f"PORT_CHECKED, or (not a host case) a frame on the host "
+                  f"path", flush=True)
             os.remove(path)
             manifest.pop(name, None)
             continue
         manifest[name] = {"frames": ref, "bytes": size}
-        if name in (BIG_INTER, BIG_HOST) or name not in cases and name != BIG:
+        if name in (BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND) or \
+                name not in cases and name != BIG:
             manifest[name]["inter"] = True
         if host:
             manifest[name]["host"] = True
