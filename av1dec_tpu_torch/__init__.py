@@ -9,7 +9,8 @@ and the block walk of the host pixel path (`pipeline/recon.py`,
 `pipeline/inter_pred.py`).  The device half is PyTorch (`ops/kernels/`,
 `pipeline/device_recon.py`), with CDEF as hand-written CUDA kernels:
 `csrc/cdef_frame.cu`, one launch per frame on both paths, and
-`csrc/cdef_filter.cu`, the per-plane filter that takes a caller's pad.
+`csrc/cdef_filter.cu`, one launch per column shard of the sharded CDEF
+(both from `csrc/cdef_common.cuh`).
 
 The JAX package stays the reference: every part of this package gives
 the same integers as its `av1dec_tpu` counterpart on the same inputs

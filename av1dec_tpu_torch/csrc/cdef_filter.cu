@@ -1,147 +1,91 @@
-// CDEF filter of one plane [SPEC §7.15.2], hand-written for Hopper (sm_90a).
+// CDEF of one column shard of a frame [SPEC §7.15], every plane in one
+// launch, hand-written for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel av1dec_tpu/ops/kernels/cdef.py:342
-// (_filter_plane_pallas, body _cdef_tile_kernel at :280) and computes the
-// same function as its plain version, _filter_plane in
-// av1dec_tpu_torch/ops/kernels/cdef.py.
+// Replaces, on the column-sharded paths of av1dec_tpu_torch
+// (parallel/sharded_cdef.py: cdef_sharded across ranks, cdef_local over
+// the cards of a process):
+// - the Pallas plane filter av1dec_tpu/ops/kernels/cdef.py:342
+//   (_filter_plane_pallas, body _cdef_tile_kernel at :280), which the
+//   JAX package's sharded CDEF runs on a bordered copy of each plane;
+// - the XLA-compiled direction search (:44 _directions) and the variance
+//   gating, damping shifts and per-pixel parameter maps of :139 _cdef_core.
+// Its plain version is _cdef_shard_core in
+// av1dec_tpu_torch/ops/kernels/cdef.py (_cdef_core of the shard's planes,
+// every tap read from their bordered copies); the two agree byte for byte.
 //
-// Per pixel: 4 primary taps at +-Cdef_Directions[dir][k] and 8 secondary
-// taps at +-Cdef_Directions[(dir +- 2) & 7][k], k = 0, 1.  Each tap
-// difference is constrained by strength and damping shift, weighted (primary
-// 4/2 or 3/3 by strength parity, secondary 2/1), summed, rounded with
-// (8 + t - (t < 0)) >> 4, clipped to the min/max of the valid taps, and
-// applied only where the 8x8 unit is active.  Taps on CDEF_VERY_LARGE (the
-// border) or with strength 0 do not count.
+// What bounds it on the H100: integer operations, as for a frame
+// (cdef_common.cuh): the bytes are the bordered copies in, the planes out
+// and the strengths, about 8 bytes a pixel.  A shard is a half or a
+// quarter of a frame, and the blocks of a launch run in one wave, a few
+// to an SM, whose busiest SM sets the time: with the frame's 64x64
+// regions a 1080p quarter shard is 136 blocks, one SM in 33 gets two and
+// every other SM holds 8 warps.  Here a block owns 64 luma columns and
+// 32 or 24 rows, whichever leaves the busiest SM fewer rows (a 1080p half
+// shard: 510 blocks of 32 rows; a quarter: 360 of 24, 3 on an SM at
+// most).
 //
-// What bounds it on the H100: bytes.  Per output pixel it reads the plane
-// and six int32 maps and writes one int32: 32 bytes against some 150
-// integer operations, far below the card's operations-per-byte balance.
-// The design reads each input byte from device memory once: a 32x8 block
-// of threads stages its (8+4)x(32+4) haloed window of the plane in shared
-// memory, so the 12 taps of a pixel (each up to 2 rows/cols away) come
-// from shared memory; the maps are read once, coalesced, one int32 per
-// thread.  The TPU kernel's 128-column lane padding and 16-row DMA band
-// are not carried over: reads outside the plane see CDEF_VERY_LARGE, or
-// come from a caller-built bordered copy `pad` (the taps then read `pad`
-// everywhere and only the centre pixel is read from `plane`, as in
-// _filter_plane).
-//
-// Plain C interface, loaded with ctypes; launches on the caller's stream
-// and returns cudaGetLastError().
+// The design is cdef_frame.cu's, from the one source cdef_common.cuh; a
+// block's out-of-shard columns come from the bordered copy (the
+// neighbouring shards' pixels, or CDEF_VERY_LARGE at the frame's edges)
+// instead of CDEF_VERY_LARGE.  A bordered copy's column 0 is the plane's
+// column -2, so its rows start 16-byte aligned 2 columns left of a
+// region without the 2 extra columns a plane needs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cdef_common.cuh"
 
 namespace {
 
-constexpr int kVeryLarge = 30000;  // CDEF_VERY_LARGE
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-constexpr int kHalo = 2;
+// luma rows a block owns: either, as `rows_for` picks
+constexpr int kRowsA = 32, kRowsB = 24;
 
-// Cdef_Directions[dir][k] as (dy, dx)
-__constant__ int c_dir[8][2][2] = {
-    {{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}},
-    {{0, 1}, {1, 2}},   {{1, 1}, {2, 2}},  {{1, 0}, {2, 1}},
-    {{1, 0}, {2, 0}},   {{1, 0}, {2, -1}},
-};
-
-__device__ __forceinline__ int constrain(int diff, int strength, int shift) {
-  int ad = diff < 0 ? -diff : diff;
-  int s = strength - (ad >> min(shift, 31));
-  int m = min(ad, s > 0 ? s : 0);
-  return diff < 0 ? -m : (diff > 0 ? m : 0);
+template <int kRows>
+__global__ void __launch_bounds__(kThreads)
+    cdef_shard_kernel(const CdefArgs a) {
+  cdef_region<2, kRows>(a);
 }
 
-// plane: [H, W].  pad: nullptr (taps outside the plane are
-// CDEF_VERY_LARGE) or a bordered copy [H + 4, W + 4] that every tap reads.
-__global__ void cdef_filter_kernel(const int32_t* __restrict__ plane,
-                                   const int32_t* __restrict__ pad,
-                                   const int32_t* __restrict__ pri,
-                                   const int32_t* __restrict__ sec,
-                                   const int32_t* __restrict__ dir,
-                                   const int32_t* __restrict__ pri_shift,
-                                   const int32_t* __restrict__ sec_shift,
-                                   const int32_t* __restrict__ apply,
-                                   int32_t* __restrict__ out, int H, int W,
-                                   int coeff_shift) {
-  __shared__ int tile[kTileH + 2 * kHalo][kTileW + 2 * kHalo];
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  constexpr int kTw = kTileW + 2 * kHalo;
-  constexpr int kN = (kTileH + 2 * kHalo) * kTw;
-  for (int i = tid; i < kN; i += kTileW * kTileH) {
-    const int ty = i / kTw, tx = i % kTw;
-    const int y = y0 + ty - kHalo, x = x0 + tx - kHalo;
-    int v = kVeryLarge;
-    if (pad) {
-      if (y >= -kHalo && y < H + kHalo && x >= -kHalo && x < W + kHalo)
-        v = pad[(size_t)(y + kHalo) * (W + 2 * kHalo) + (x + kHalo)];
-    } else if (y >= 0 && y < H && x >= 0 && x < W) {
-      v = plane[(size_t)y * W + x];
-    }
-    tile[ty][tx] = v;
-  }
-  __syncthreads();
-
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const size_t o = (size_t)y * W + x;
-  const int cy = threadIdx.y + kHalo, cx = threadIdx.x + kHalo;
-  const int px = pad ? plane[o] : tile[cy][cx];
-  if (apply[o] == 0) {
-    out[o] = px;
-    return;
-  }
-  const int ps = pri[o], ss = sec[o];
-  const int psh = pri_shift[o], ssh = sec_shift[o];
-  const int d = dir[o] & 7;
-  const int odd = (ps >> coeff_shift) & 1;
-  const int pri_tap[2] = {odd ? 3 : 4, odd ? 3 : 2};
-  const int sec_tap[2] = {2, 1};
-  int total = 0, mx = px, mn = px;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-#pragma unroll
-    for (int sgn = 1; sgn >= -1; sgn -= 2) {
-      const int p = tile[cy + sgn * c_dir[d][k][0]][cx + sgn * c_dir[d][k][1]];
-      if (p != kVeryLarge && ps > 0) {
-        total += pri_tap[k] * constrain(p - px, ps, psh);
-        mx = max(mx, p);
-        mn = min(mn, p);
-      }
-#pragma unroll
-      for (int rot = 2; rot <= 6; rot += 4) {
-        const int dd = (d + rot) & 7;
-        const int q = tile[cy + sgn * c_dir[dd][k][0]][cx + sgn * c_dir[dd][k][1]];
-        if (q != kVeryLarge && ss > 0) {
-          total += sec_tap[k] * constrain(q - px, ss, ssh);
-          mx = max(mx, q);
-          mn = min(mn, q);
-        }
-      }
-    }
-  }
-  const int yv = px + ((8 + total - (total < 0 ? 1 : 0)) >> 4);
-  out[o] = min(max(yv, mn), mx);
+// The blocks of a launch run in one wave (a few per SM), so the busiest
+// SM sets its time: take the rows a block owns whose busiest SM, with the
+// blocks spread evenly, has the fewer rows (kRowsA on a tie).
+int rows_for(int H, int W, int sms) {
+  const int cols = (W + kRegionW - 1) / kRegionW;
+  auto busiest = [&](int rows) {
+    const int blocks = cols * ((H + rows - 1) / rows);
+    return rows * ((blocks + sms - 1) / sms);
+  };
+  return busiest(kRowsB) < busiest(kRowsA) ? kRowsB : kRowsA;
 }
 
 }  // namespace
 
-extern "C" int cdef_filter_plane(const void* plane, const void* pad,
-                                 const void* pri, const void* sec,
-                                 const void* dir, const void* pri_shift,
-                                 const void* sec_shift, const void* apply,
-                                 void* out, int H, int W, int coeff_shift,
-                                 void* stream) {
-  if (H <= 0 || W <= 0) return 0;
-  dim3 block(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
-  cdef_filter_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)plane, (const int32_t*)pad, (const int32_t*)pri,
-      (const int32_t*)sec, (const int32_t*)dir, (const int32_t*)pri_shift,
-      (const int32_t*)sec_shift, (const int32_t*)apply, (int32_t*)out, H, W,
-      coeff_shift);
-  return (int)cudaGetLastError();
+// y, u, v: contiguous int32 bordered copies [Hp + 4, Wp + 4] of the
+// shard's planes (Hp x Wp: H x W for luma, (H >> suby) x (W >> subx) for
+// chroma), bases multiples of 16 bytes (u, v null when nplanes == 1);
+// oy, ou, ov: contiguous int32 outputs [Hp, Wp]; y_pri .. uv_sec:
+// contiguous int32 [H/8, W/8].  H and W are multiples of 8.
+extern "C" int cdef_shard(const void* y, const void* u, const void* v,
+                          void* oy, void* ou, void* ov, const void* y_pri,
+                          const void* y_sec, const void* uv_pri,
+                          const void* uv_sec, int H, int W, int nplanes,
+                          int bd, int damping, int subx, int suby,
+                          void* stream) {
+  static size_t allowed_a[kMaxDevices] = {}, allowed_b[kMaxDevices] = {};
+  const int cw = nplanes > 1 ? (W >> subx) + 4 : 0;
+  const CdefArgs a = {{(const int32_t*)y, (const int32_t*)u,
+                       (const int32_t*)v},
+                      {W + 4, cw, cw},
+                      {(int32_t*)oy, (int32_t*)ou, (int32_t*)ov},
+                      {(const int32_t*)y_pri, (const int32_t*)y_sec,
+                       (const int32_t*)uv_pri, (const int32_t*)uv_sec},
+                      H, W, nplanes, 0, damping, subx, suby};
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (rows_for(H, W, sms) == kRowsB)
+    return cdef_launch<kRowsB>(cdef_shard_kernel<kRowsB>, allowed_b, a, bd,
+                               stream);
+  return cdef_launch<kRowsA>(cdef_shard_kernel<kRowsA>, allowed_a, a, bd,
+                             stream);
 }

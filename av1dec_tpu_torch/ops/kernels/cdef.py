@@ -9,26 +9,24 @@ Port of `av1dec_tpu.ops.kernels.cdef`:
   range) and are cast back to int32 once the variance is taken;
   `_first_argmax` returns the first maximum, as the spec's strict `>`.
 - `_filter_plane`: the plain per-plane filter (12 taps, each a select
-  over 8 statically shifted copies of the padded plane).  It is the
-  reference of the CUDA kernel and runs for CPU tensors.
-- `filter_plane`: the public per-plane filter.  A CUDA tensor goes to
-  the hand-written kernel (`csrc/cdef_filter.cu`), a CPU tensor to
-  `_filter_plane`; nothing else is accepted.
+  over 8 statically shifted copies of the padded plane).
 - `_cdef_core`: variance gating, damping shifts, per-pixel maps and the
-  three plane filters of one frame, in plain torch; with `mk_pad` (the
-  column-sharded path, `parallel/sharded_cdef.py`) each plane is
-  filtered by `filter_plane` on the border that `mk_pad` builds, so a
-  CUDA shard runs `csrc/cdef_filter.cu`.
+  three plane filters of one frame, in plain torch; with `pads` (the
+  column-sharded path) every tap reads the planes' bordered copies.
 - `cdef_frame`: the public CDEF of one frame (the function of
   `_cdef_core`).  A CUDA frame goes to the hand-written kernel
   (`csrc/cdef_frame.cu`: one launch for every plane, direction search
   and gating inside, per-8x8-unit strengths in place of per-pixel
   maps), a CPU frame to `_cdef_core`; nothing else is accepted.
+- `cdef_shard`: the public CDEF of one column shard from its planes'
+  bordered copies (`parallel/sharded_cdef.py`), the function of
+  `_cdef_shard_core`.  A CUDA shard goes to the hand-written kernel
+  (`csrc/cdef_filter.cu`: `cdef_frame.cu`'s design and source, one
+  launch for every plane, the out-of-shard columns from the copies), a
+  CPU shard to `_cdef_shard_core`; nothing else is accepted.
 
 All pixel math is int32, bit-exact with the JAX package.
 """
-import ctypes
-
 import numpy as np
 import torch
 
@@ -51,7 +49,7 @@ _DIV = np.asarray(DIV_TABLE, np.int64).astype(np.int32)
 # 4:2:2 chroma direction remap [SPEC §7.15.3]
 _UV_DIR_422 = np.array([7, 0, 2, 4, 5, 6, 6, 6], np.int32)
 
-# launches of the CUDA per-plane filter kernel in this process
+# launches of the CUDA shard kernel in this process
 launches = 0
 # launches of the CUDA frame kernel in this process
 frame_launches = 0
@@ -114,10 +112,10 @@ def _constrain(diff, strength, shift):
 
 def _filter_plane(plane_arr, pri_px, sec_px, dir_px, pri_shift, sec_shift,
                   apply_px, coeff_shift, pad=None):
-    """Plain version of the CDEF plane filter.  All *_px are [H,W]
-    int32.  `pad` may be a prebuilt [H+4, W+4] bordered copy (the
+    """Plain CDEF plane filter.  All *_px are [H,W] int32.  `pad` may be
+    a prebuilt [H+4, W+4] bordered copy that every tap reads (the
     column-sharded path builds it with neighbour halos instead of
-    CDEF_VERY_LARGE)."""
+    CDEF_VERY_LARGE); the centre pixel comes from `plane_arr`."""
     H, W = plane_arr.shape
     x = plane_arr.to(torch.int32)
     if pad is None:
@@ -162,48 +160,6 @@ def _filter_plane(plane_arr, pri_px, sec_px, dir_px, pri_shift, sec_shift,
     return torch.where(apply_px != 0, y, x)
 
 
-_MAPS = ("pri", "sec", "dir", "pri_shift", "sec_shift", "apply")
-
-
-def filter_plane(plane_arr, pri_px, sec_px, dir_px, pri_shift, sec_shift,
-                 apply_px, coeff_shift, pad=None):
-    """CDEF filter of one plane (the function of `_filter_plane`).
-
-    A CUDA plane runs the hand-written kernel and counts one launch in
-    `launches`; a CPU plane runs `_filter_plane`.  Every map must lie on
-    the plane's device; the kernel takes contiguous int32 [H, W] maps
-    and, when given, a contiguous int32 [H+4, W+4] `pad`."""
-    global launches
-    if plane_arr.device.type == "cpu":
-        return _filter_plane(plane_arr, pri_px, sec_px, dir_px, pri_shift,
-                             sec_shift, apply_px, coeff_shift, pad)
-    if plane_arr.device.type != "cuda":
-        raise ValueError(f"filter_plane: unsupported device "
-                         f"{plane_arr.device}")
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    lib = load_kernel("cdef_filter")
-    H, W = plane_arr.shape
-    maps = (pri_px, sec_px, dir_px, pri_shift, sec_shift, apply_px)
-    for name, m in zip(_MAPS, maps):
-        _check(name, m, plane_arr.device, (H, W))
-    plane = plane_arr.to(torch.int32).contiguous()
-    if pad is not None:
-        _check("pad", pad, plane_arr.device, (H + 4, W + 4))
-    out = torch.empty((H, W), dtype=torch.int32, device=plane_arr.device)
-    stream = torch.cuda.current_stream(plane_arr.device).cuda_stream
-    err = lib.cdef_filter_plane(
-        ctypes.c_void_p(plane.data_ptr()),
-        ctypes.c_void_p(None if pad is None else pad.data_ptr()),
-        *[ctypes.c_void_p(m.data_ptr()) for m in maps],
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(H), ctypes.c_int(W),
-        ctypes.c_int(coeff_shift), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"cdef_filter_plane launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
-    return out
-
-
 def _check(name, t, device, shape):
     if t.device != device or t.dtype != torch.int32 or \
             tuple(t.shape) != shape or not t.is_contiguous():
@@ -214,13 +170,12 @@ def _check(name, t, device, shape):
 
 
 def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
-               bd, damping_y, subx, suby, mk_pad=None):
+               bd, damping_y, subx, suby, pads=None):
     """CDEF of one frame.  `planes`: tuple of [H,W] int32 plane tensors;
     *_u: per-8x8-luma-unit strengths (already gated by `active`, <=0
-    where inactive).  `mk_pad(plane)` optionally supplies each plane's
-    bordered [H+4, W+4] copy (the column-sharded path attaches its
-    neighbours' halo columns there); the planes then go through
-    `filter_plane`, the CUDA kernel on a card.  Returns the filtered
+    where inactive).  `pads` optionally gives each plane's bordered
+    [H+4, W+4] copy, which its taps read (the column-sharded path
+    attaches its neighbours' halo columns there).  Returns the filtered
     planes (same shapes)."""
     coeff_shift = bd - 8
     luma = planes[0]
@@ -245,15 +200,13 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
             .contiguous()
 
     H, W = luma.shape
-    if mk_pad is None:
-        fp = _filter_plane
-    else:
-        def fp(plane, *args):
-            return filter_plane(plane, *args,
-                                pad=mk_pad(plane).contiguous())
+
+    def fp(pl, *args):
+        return _filter_plane(planes[pl], *args,
+                             pad=None if pads is None else pads[pl])
     apply_y = (pri_adj > 0) | (y_sec_u > 0)
     out = [fp(
-        luma,
+        0,
         expand(pri_adj, 8, 8, H, W),
         expand(y_sec_u, 8, 8, H, W),
         expand(torch.where(active_pri, dirs, 0), 8, 8, H, W),
@@ -276,7 +229,7 @@ def _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u,
                 expand(shift_for(uv_sec_u, damping_y - 1), ry, rx, Hc, Wc),
                 expand(apply_uv, ry, rx, Hc, Wc))
         for pl in (1, 2):
-            out.append(fp(planes[pl], *args, coeff_shift))
+            out.append(fp(pl, *args, coeff_shift))
     return tuple(out)
 
 
@@ -327,15 +280,78 @@ def cdef_frame(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd, damping,
     outs = [torch.empty(p.shape, dtype=torch.int32, device=dev)
             for p in src]
     absent = [None] * (3 - len(src))  # U and V of a mono frame
-    err = lib.cdef_frame(
-        *[p.data_ptr() for p in src], *absent,
-        *[p.stride(0) for p in src], *[0] * len(absent),
-        *[o.data_ptr() for o in outs], *absent,
-        *[g.data_ptr() for g in gates], H, W, len(src), bd, damping, subx,
-        suby, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.cdef_frame(
+            *[p.data_ptr() for p in src], *absent,
+            *[p.stride(0) for p in src], *[0] * len(absent),
+            *[o.data_ptr() for o in outs], *absent,
+            *[g.data_ptr() for g in gates], H, W, len(src), bd, damping,
+            subx, suby, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cdef_frame launch failed: CUDA error {err}")
     frame_launches += 1
+    return tuple(outs)
+
+
+def _cdef_shard_core(pads, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd,
+                     damping, subx, suby):
+    """Plain CDEF of one column shard from its planes' bordered copies:
+    `_cdef_core` of the copies' interiors, every tap read from the
+    copies."""
+    planes = tuple(p[2:-2, 2:-2] for p in pads)
+    return _cdef_core(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd,
+                      damping, subx, suby, pads=pads)
+
+
+def cdef_shard(pads, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd, damping,
+               subx, suby):
+    """CDEF of one column shard (the function of `_cdef_shard_core`).
+
+    `pads`: the 1 or 3 bordered int32 copies of the shard's planes,
+    luma [H+4, W+4] (H, W multiples of 8) and chroma
+    [(H >> suby) + 4, (W >> subx) + 4], their interiors the shard's
+    pixels and their border the neighbouring shards' columns (or
+    CDEF_VERY_LARGE), as `parallel/sharded_cdef.py` builds them; the
+    strengths [H/8, W/8] int32, as for `cdef_frame`; every tensor
+    contiguous and on one device.  A CUDA shard runs the hand-written
+    kernel, one launch for every plane, and counts it in `launches`; a
+    CPU shard runs `_cdef_shard_core`.  Returns new int32 [H, W] planes.
+    """
+    global launches
+    dev = pads[0].device
+    H, W = pads[0].shape[0] - 4, pads[0].shape[1] - 4
+    if len(pads) not in (1, 3) or H <= 0 or W <= 0 or H % 8 or W % 8:
+        raise ValueError(f"cdef_shard: needs 1 or 3 bordered planes and a "
+                         f"luma plane of multiples of 8, got {len(pads)} "
+                         f"planes, luma pad {tuple(pads[0].shape)}")
+    shapes = [(H + 4, W + 4)] + \
+        [((H >> suby) + 4, (W >> subx) + 4)] * (len(pads) - 1)
+    for pl, (p, shape) in enumerate(zip(pads, shapes)):
+        _check(f"pad {pl}", p, dev, shape)
+    gates = (y_pri_u, y_sec_u, uv_pri_u, uv_sec_u)
+    for name, g in zip(("y_pri", "y_sec", "uv_pri", "uv_sec"), gates):
+        _check(name, g, dev, (H // 8, W // 8))
+    if dev.type == "cpu":
+        return _cdef_shard_core(pads, *gates, bd, damping, subx, suby)
+    if dev.type != "cuda":
+        raise ValueError(f"cdef_shard: unsupported device {dev}")
+    if any(p.data_ptr() % 16 for p in pads):
+        raise ValueError("cdef_shard: the bordered planes must start on "
+                         "16 bytes")
+    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
+    lib = load_kernel("cdef_filter")
+    outs = [torch.empty((h - 4, w - 4), dtype=torch.int32, device=dev)
+            for h, w in shapes]
+    absent = [None] * (3 - len(pads))  # U and V of a mono shard
+    with torch.cuda.device(dev):
+        err = lib.cdef_shard(
+            *[p.data_ptr() for p in pads], *absent,
+            *[o.data_ptr() for o in outs], *absent,
+            *[g.data_ptr() for g in gates], H, W, len(pads), bd, damping,
+            subx, suby, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cdef_shard launch failed: CUDA error {err}")
+    launches += 1
     return tuple(outs)
 
 

@@ -2,13 +2,15 @@
 
 Each `csrc/<name>.cu` has a plain C interface.  It is compiled with
 `nvcc` for `sm_90a` into `av1dec_tpu_torch/build/lib<name>.so` at first
-use (one nvcc process per source, all started together) and loaded with
+use, or when it or a header of `csrc/` is newer than its library (one
+nvcc process per source, all started together), and loaded with
 ctypes.  Nothing here runs at import: this module is imported on
 machines without `nvcc` or a card.  A kernel that does not build
 raises.
 """
 import ctypes
 import fcntl
+import glob
 import os
 import shutil
 import subprocess
@@ -25,8 +27,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (C function, argtypes); every pointer and the stream are void*
 KERNELS = {
-    "cdef_filter": ("cdef_filter_plane",
-                    [_P] * 9 + [_I, _I, _I, _P]),
+    "cdef_filter": ("cdef_shard", [_P] * 10 + [_I] * 7 + [_P]),
     "cdef_frame": ("cdef_frame",
                    [_P] * 3 + [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P]),
 }
@@ -50,9 +51,13 @@ def _paths(name):
 
 
 def _stale(name):
+    """The library is missing, or older than its source or a header of
+    `csrc/` (the kernels share `cdef_common.cuh`)."""
     src, so = _paths(name)
-    return not os.path.exists(so) or \
-        os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    deps = [src] + glob.glob(os.path.join(_CSRC, "*.cuh"))
+    return os.path.getmtime(so) < max(map(os.path.getmtime, deps))
 
 
 def build_kernels(names=None, verbose=False):

@@ -4,9 +4,10 @@ Port of `av1dec_tpu.parallel.sharded_cdef`.  CDEF reads a +-2 pixel
 neighbourhood, so a plane sharded by columns needs 2 halo columns from
 each space neighbour (`halo.exchange_halo_cols_fill`).  The direction
 search and the per-unit strengths are local to each 8x8-unit-aligned
-shard; each shard's planes are filtered by `filter_plane` on the border
-`_mk_pad` builds: `csrc/cdef_filter.cu` on a card, `_filter_plane` on
-the CPU.  The result equals the whole-frame CDEF byte for byte
+shard; each shard is filtered by `cdef.cdef_shard` from the bordered
+copies `_mk_pad` builds: `csrc/cdef_filter.cu`, one launch for every
+plane, on a card, its plain version `_cdef_shard_core` on the CPU.  The
+result equals the whole-frame CDEF byte for byte
 (tests/test_torch_distributed.py; `chip_smoke.py` phase 7 on the card).
 
 `cdef_local` is the same CDEF over the devices of one process, with no
@@ -86,12 +87,11 @@ def cdef_sharded(planes, gates, bd, mesh):
     strengths = [torch.as_tensor(g).to(device=dev, dtype=torch.int32)
                  [:, s * uw:(s + 1) * uw].contiguous()
                  for g in (y_pri, y_sec, uv_pri, uv_sec)]
-    shards = []
+    pads = []
     for p in planes:
         w = p.shape[1] // n
-        shards.append(p[:, s * w:(s + 1) * w].contiguous())
-    out = C._cdef_core(tuple(shards), *strengths, bd, damping, subx, suby,
-                       mk_pad=lambda p: _mk_pad(p, mesh))
+        pads.append(_mk_pad(p[:, s * w:(s + 1) * w].contiguous(), mesh))
+    out = C.cdef_shard(tuple(pads), *strengths, bd, damping, subx, suby)
     return tuple(_gather_cols(o, mesh) for o in out)
 
 
@@ -125,9 +125,9 @@ def _local_pad(plane, s, n):
 
 def cdef_local(planes, gates, bd, devices):
     """CDEF of one frame with its plane columns cut into len(devices)
-    shards, shard s filtered on devices[s] (`filter_plane`: the
-    `cdef_filter.cu` kernel on a card, `_filter_plane` on the CPU) in
-    this process.  planes: whole [H, W] int32 tensors on one device,
+    shards, shard s filtered on devices[s] (`cdef.cdef_shard`: one launch
+    of the `cdef_filter.cu` kernel on a card, its plain version on the
+    CPU) in this process.  planes: whole [H, W] int32 tensors on one device,
     on the 8x8-unit grid, the luma width divisible by 8 * len(devices);
     gates: `compute_gates` output.  Returns the whole filtered planes on
     the planes' device, byte-equal to `_cdef_core` of the whole frame."""
@@ -145,15 +145,9 @@ def cdef_local(planes, gates, bd, devices):
         strengths = [torch.as_tensor(g).to(dtype=torch.int32)
                      [:, s * uw:(s + 1) * uw].to(dev).contiguous()
                      for g in (y_pri, y_sec, uv_pri, uv_sec)]
-        shards, pads = [], {}
-        for p in planes:
-            w = p.shape[1] // n
-            shard = p[:, s * w:(s + 1) * w].to(dev).contiguous()
-            pads[id(shard)] = _local_pad(p, s, n).to(dev)
-            shards.append(shard)
-        outs.append(C._cdef_core(tuple(shards), *strengths, bd, damping,
-                                 subx, suby,
-                                 mk_pad=lambda t, pads=pads: pads[id(t)]))
+        pads = tuple(_local_pad(p, s, n).to(dev) for p in planes)
+        outs.append(C.cdef_shard(pads, *strengths, bd, damping, subx,
+                                 suby))
     local_frames += 1
     return tuple(torch.cat([o[pl].to(home) for o in outs], dim=1)
                  for pl in range(len(planes)))

@@ -19,12 +19,13 @@ its rule: NCCL when every rank has a card) and runs, in order:
   subx, suby], as `save_cdef_input` writes it) over a mesh of each
   `--n-space` size (data = N / n_space), as MD5s of each whole output
   plane's int32 bytes, with the `cdef_filter` launches of that call and
-  the largest difference of each of its `filter_plane` outputs from the
-  plain `_filter_plane` on the same shard, maps and pad; with `--time
-  ITERS` on a card, also the mean device ms of the `cdef_filter`
-  kernels and the mean host ms of the halo exchanges per call over
-  ITERS more calls, and the ms of the plain version on the shards (the
-  ranks take turns, so that each has the card to itself);
+  the largest difference of its `cdef_shard` output from the plain
+  `_cdef_shard_core` on the same bordered planes and strengths; with
+  `--time ITERS` on a card, also the mean device ms of the
+  `cdef_shard_kernel` launches and the mean host ms of the halo
+  exchanges per call over ITERS more calls, and the ms of the plain
+  version on the same inputs (the ranks take turns, so that each has
+  the card to itself);
 - `--frames`: `decode_frames_sharded` of STREAM's first FRAMES_DATA
   coded frames over a mesh with data = FRAMES_DATA, as display MD5s per
   frame.
@@ -49,8 +50,9 @@ import numpy as np
 HALO_BLOCK = (3, 4)
 # ranks on the data axis of the sharded frames run, one frame each
 FRAMES_DATA = 2
-# calls of the plain version timed per rank
+# calls of the plain version and of the kernel's wrapper timed per rank
 PLAIN_ITERS = 3
+WRAPPER_ITERS = 20
 
 
 def halo_block(rank):
@@ -108,60 +110,70 @@ def _cdef_runs(args, dev, res):
         out, calls = _against_plain(lambda: sharded_cdef.cdef_sharded(
             planes, gates, bd, mesh))
         rec = {"md5": plane_md5s(out), "launches": cdef.launches - before,
-               "max_abs_err": max(err for _, _, err in calls),
+               "max_abs_err": max(err for _, err in calls),
                "shard_widths": [p.shape[1] // n_space for p in planes],
                "space_index": mesh.space_index}
         if args.time and dev.type == "cuda":
             rec.update(_time_cdef(planes, gates, bd, mesh, args.time))
-            rec["plain_ms"] = _plain_ms(calls)
+            rec.update(_turns_ms(calls))
         res["cdef"][str(n_space)] = rec
 
 
 def _against_plain(fn):
-    """fn(), with each `filter_plane` call of it held against the plain
-    `_filter_plane` on the same inputs (plane, maps, pad).  Returns
-    (fn's result, [(arguments, pad, max abs difference)] per call)."""
+    """fn(), with each `cdef_shard` call of it held against the plain
+    `_cdef_shard_core` on the same inputs (bordered planes, strengths).
+    Returns (fn's result, [(arguments, max abs difference)] per call)."""
     from av1dec_tpu_torch.ops.kernels import cdef
-    real, calls = cdef.filter_plane, []
+    real, calls = cdef.cdef_shard, []
 
-    def held(*args, pad=None):
-        got = real(*args, pad=pad)
-        ref = cdef._filter_plane(*args, pad=pad)
-        calls.append((args, pad, int((got - ref).abs().max())))
+    def held(*args):
+        got = real(*args)
+        ref = cdef._cdef_shard_core(*args)
+        calls.append((args, max(int((g - r).abs().max())
+                                for g, r in zip(got, ref))))
         return got
-    cdef.filter_plane = held
+    cdef.cdef_shard = held
     try:
         return fn(), calls
     finally:
-        cdef.filter_plane = real
+        cdef.cdef_shard = real
 
 
-def _plain_ms(calls):
-    """Mean ms (CUDA events) of the plain `_filter_plane` on the inputs
-    of `calls`, all of them once per iteration; the ranks take turns."""
+def _turns_ms(calls):
+    """Mean ms (CUDA events) of the `cdef_shard` wrapper and of the plain
+    `_cdef_shard_core` on the inputs of `calls`, all of them once per
+    iteration; the ranks take turns, so that each has the card to
+    itself."""
     import torch
     import torch.distributed as dist
 
     from av1dec_tpu_torch.ops.kernels import cdef
-    ms = None
+
+    def mean_ms(fn, iters):
+        def once():
+            for args, _ in calls:
+                fn(*args)
+        once()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            once()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    out = {}
     for r in range(dist.get_world_size()):
         if r == dist.get_rank():
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(PLAIN_ITERS):
-                for args, pad, _ in calls:
-                    cdef._filter_plane(*args, pad=pad)
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / PLAIN_ITERS
+            out = {"wrapper_ms": mean_ms(cdef.cdef_shard, WRAPPER_ITERS),
+                   "plain_ms": mean_ms(cdef._cdef_shard_core, PLAIN_ITERS)}
         dist.barrier()
-    return ms
+    return out
 
 
 def _time_cdef(planes, gates, bd, mesh, iters):
-    """Mean device ms of the cdef_filter kernels and mean host ms of the
+    """Mean device ms of the cdef_shard kernels and mean host ms of the
     halo exchanges of one cdef_sharded call, over `iters` calls."""
     import torch
     from torch.autograd import DeviceType
@@ -178,18 +190,29 @@ def _time_cdef(planes, gates, bd, mesh, iters):
         torch.cuda.synchronize()
         spent[0] += time.perf_counter() - t
         return out
-    sharded_cdef.exchange_halo_cols_fill = timed
     try:
+        # a trace can miss the first launches after it starts: it starts
+        # with 3 calls and a marker kernel, and keeps what begins after it
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            sharded_cdef.exchange_halo_cols_fill = timed
             for _ in range(iters):
                 sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
             torch.cuda.synchronize()
     finally:
         sharded_cdef.exchange_halo_cols_fill = real
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and "cdef_filter_kernel" in e.name]
-    if not ev:
-        raise RuntimeError("the profiler recorded no cdef_filter kernel")
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e for e in ev if "spin_kernel" in e.name]
+    if not marks:
+        raise RuntimeError("the profiler recorded no marker kernel")
+    ev = [e for e in ev if "cdef_shard_kernel" in e.name and
+          e.time_range.start >= marks[-1].time_range.end]
+    if len(ev) != iters:
+        raise RuntimeError(f"the profiler recorded {len(ev)} cdef_shard "
+                           f"kernels for {iters} calls")
     return {"kernel_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 /
             iters, "kernels_per_call": len(ev) / iters,
             "halo_ms": spent[0] * 1e3 / iters}

@@ -13,12 +13,17 @@ Phases (each raises on failure, so the script exits non-zero):
      `_cdef_core`: 4:2:0, 4:2:2, 4:4:4 and mono at 72x136, 8- and 10-bit,
      strengths mixed, all zero, primary only and secondary only, with
      direction-tie luma blocks, and 1080p 4:2:0 at 8 and 10 bits;
-   - `cdef_filter` (the per-plane kernel that takes a caller's pad)
-     against `_filter_plane` at the test shapes and the main path's plane
-     shapes (8- and 10-bit), and with a caller pad;
-   then each kernel's device time (torch.profiler: kernel time only, no
-   host cost) and its wrapper-inclusive time at 1080p 4:2:0, beside the
-   plain version's time and the bound for the same inputs; and B7, the
+   - `cdef_filter` (the kernel of one column shard, from its planes'
+     bordered copies) against `_cdef_shard_core`, one launch a shard:
+     72x160 frames in the 4 formats, 8- and 10-bit, the 5 strength
+     kinds, cut into 1, 2 and 4 shards (widths 160, 80 and 40), and
+     1080p 4:2:0 at 8 and 10 bits in 2 and 4 shards (960, 480), each
+     with the pads `cdef_local` builds and (but 1080p all-tap) with
+     random values in their halo columns;
+   then the frame kernel's device time (torch.profiler: kernel time
+   only, no host cost) and its wrapper-inclusive time at 1080p 4:2:0,
+   beside the plain version's time and the bound for the same inputs;
+   and B7, the
    device residuals (`ops/kernels/itx.residual_bucket`, plain torch),
    byte-equal on the card to its CPU run and to the NumPy spec model on
    every valid (tx_size, tx_type) at 8 and 10 bits, and to its CPU run
@@ -73,10 +78,11 @@ Phases (each raises on failure, so the script exits non-zero):
       `cdef_sharded` on phase 3's frame 0 (deblocked planes, real
       strengths) at n_space 2 and 4, each byte-equal to the plain
       `_cdef_core` on the whole frame (with which `cdef_frame` is held
-      equal too), 3 `cdef_filter` launches per rank per call, each
-      byte-equal to the plain `_filter_plane` on the same shard, maps
-      and halo pad (per-rank kernel device ms, the plain version's ms on
-      the same shards, halo-exchange ms and bound);
+      equal too), 1 `cdef_filter` launch per rank per call, byte-equal
+      to the plain `_cdef_shard_core` on the same bordered planes and
+      strengths (per-rank kernel device ms, wrapper-inclusive ms, the
+      plain version's ms on the same inputs, halo-exchange ms, and the
+      bound with both its terms);
    d. frame-sharded decode: in the same launch, `decode_frames_sharded`
       of frames 0-1 at data=2 against the manifest;
    e. NCCL: one rank whose backend the default rule picks (NCCL: it has
@@ -96,21 +102,25 @@ Phases (each raises on failure, so the script exits non-zero):
    c. `decode_stream_batched` on `screen`'s TU 0, an intra block copy
       key frame, inline on the host pixel path, against the manifest;
    d. `parallel.sharded_cdef.cdef_local` on phase 3's frame 0 in 2 and 4
-      column shards on the card repeated, against `_cdef_core`, every
-      `cdef_filter` launch byte-equal to `_filter_plane` on the same
-      shard, maps and pad, and the kernel's times on shard 0 of 2;
+      column shards on the card repeated, against `_cdef_core`, one
+      `cdef_filter` launch a shard, each byte-equal to
+      `_cdef_shard_core` on the same inputs, and the kernel's times on
+      shard 0 of 2 (device, wrapper-inclusive, plain, the bound with
+      both its terms);
    e. `Decoder(DecoderConfig(space_shards=2))` on the intra stream's TU
       0, with the card twice as the process's devices (the shard path,
-      each launch checked as in d) and with its own devices (one card:
-      the fewer-devices warning and `cdef_frame`), against the manifest.
+      2 launches, each checked as in d) and with its own devices (one
+      card: the fewer-devices warning and `cdef_frame`), against the
+      manifest.
 
 The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
-8a-c and 8e for `cdef_frame`, and phase 7's checked calls (counted in
-each worker process) and phase 8d-e for `cdef_filter`.  `cdef_frame`'s
-times there are phase 2's (1080p 4:2:0, random all-tap strengths);
-`cdef_filter`'s are those of the shapes of its `Decoder`-path launches,
-shard 0 of 2 in 8d (luma 1080x960 and chroma 540x480, with pads), and
-its max_abs_err covers phases 2 and 8 (phase 7 raises on any).
+8a-c and 8e for `cdef_frame` (36), and phase 7's checked calls (counted
+in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
+(2 + 4 + 2) for `cdef_filter` (17).  `cdef_frame`'s times there are
+phase 2's (1080p 4:2:0, random all-tap strengths); `cdef_filter`'s are
+those of its `Decoder`-path launch, shard 0 of 2 in 8d (luma pad
+1084x964, chroma pads 544x484), and its max_abs_err is phase 8's
+(phases 2 and 7 raise on any).
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -200,18 +210,33 @@ def cuda_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
-def _device_events(fn, iters):
-    """torch.profiler's device intervals over a warm loop of fn()."""
+def _device_events(fn, iters, attempts=3):
+    """torch.profiler's device intervals of `iters` warm calls of fn().
+    A trace can miss the first launches after it starts, so it starts
+    with 10 more calls and a marker kernel (`torch.cuda._sleep`), and
+    only the intervals that begin after the marker are kept; a trace
+    without the marker is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = [e for e in ev if "spin_kernel" in e.name]
+        if marks:
+            return [e for e in ev
+                    if e.time_range.start >= marks[-1].time_range.end]
+    raise RuntimeError(f"the profiler recorded no marker kernel in "
+                       f"{attempts} traces")
 
 
 def device_ms(fn, iters):
@@ -225,13 +250,16 @@ def device_ms(fn, iters):
             len(kernels) / iters)
 
 
-def kernel_ms(fn, name, iters):
+def kernel_ms(fn, name, iters, attempts=3):
     """Mean device milliseconds, per fn() call, of the kernels whose name
-    holds `name` (no host cost counted)."""
-    ev = [e for e in _device_events(fn, iters) if name in e.name]
-    if not ev:
-        raise RuntimeError(f"the profiler recorded no {name} kernel")
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    holds `name` (no host cost counted); fn() launches one such kernel.
+    A trace that lacks some of them is taken again."""
+    for _ in range(attempts):
+        ev = [e for e in _device_events(fn, iters) if name in e.name]
+        if len(ev) == iters:
+            return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    raise RuntimeError(f"the profiler recorded {len(ev)} {name} kernels "
+                       f"for {iters} calls, {attempts} times")
 
 
 def bound(nbytes, ops, int_rate):
@@ -239,6 +267,15 @@ def bound(nbytes, ops, int_rate):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = ops / int_rate * 1e3
     return (b_ops, "operations") if b_ops > b_bytes else (b_bytes, "bytes")
+
+
+def bound_terms(nbytes, ops, int_rate):
+    """Both terms of the bound of work of `nbytes` and `ops`, the bound
+    and what sets it."""
+    b, by = bound(nbytes, ops, int_rate)
+    return {"bytes": nbytes, "ops": ops,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / int_rate * 1e3, "bound_ms": b, "bound_by": by}
 
 
 def filter_ops(apply, pri_on, sec_on, px):
@@ -250,21 +287,13 @@ def filter_ops(apply, pri_on, sec_on, px):
     return int(per_px.sum()) * px
 
 
-def filter_bytes(H, W, n_apply, padded):
-    """Bytes one CDEF plane filter must move: the apply map at every
-    pixel and the other 5 maps (strengths, direction, shifts) only at
-    the `n_apply` pixels that apply (the others copy), the source read
-    once (a caller's [H+4, W+4] pad holds the centre pixels too, so the
-    plane is not counted beside it) and the output written once."""
-    src = (H + 4) * (W + 4) if padded else H * W
-    return 4 * (src + 2 * H * W + 5 * n_apply)
-
-
-def frame_work(planes, gates, bd, subx, suby):
-    """(bytes, int32 operations) that CDEF of one frame needs with these
-    inputs: the planes read and written once and the strengths read once;
-    the direction search of each unit with a primary strength, and the
-    taps that are on in each unit with something to apply."""
+def cdef_work(planes, gates, bd, subx, suby, pads=None):
+    """(bytes, int32 operations) that CDEF of one frame, or of one column
+    shard from its bordered planes `pads`, needs with these inputs: the
+    planes (or the pads, which hold the shard's pixels) read once, the
+    planes written once and the strengths read once; the direction search
+    of each unit with a primary strength, and the taps that are on in
+    each unit with something to apply."""
     from av1dec_tpu_torch.ops.kernels.cdef import _directions, _ilog2
     y_pri, y_sec, uv_pri, uv_sec = gates
     chroma = len(planes) > 1
@@ -278,9 +307,27 @@ def frame_work(planes, gates, bd, subx, suby):
                           uv_sec > 0, 2 * (64 >> (subx + suby)))
         search = search | (uv_pri > 0)
     ops += int(search.sum()) * DIR_OPS_PER_UNIT
-    nbytes = sum(2 * 4 * p.numel() for p in planes) + \
+    nbytes = sum(4 * p.numel() for p in (planes if pads is None else pads))
+    nbytes += sum(4 * p.numel() for p in planes) + \
         (4 if chroma else 2) * 4 * y_pri.numel()
     return nbytes, ops
+
+
+def shard_inputs(planes, gates, n, s):
+    """`cdef_shard`'s inputs for column shard s of n of a whole frame:
+    the bordered planes, as `cdef_local` builds them, and the shard's
+    strengths."""
+    from av1dec_tpu_torch.parallel.sharded_cdef import _local_pad
+    pads = tuple(_local_pad(p, s, n) for p in planes)
+    uw = gates[0].shape[1] // n
+    return pads, [g[:, s * uw:(s + 1) * uw].contiguous() for g in gates]
+
+
+def shard_work(planes, gates, bd, subx, suby, n, s):
+    """`cdef_work` of column shard s of n of a whole frame."""
+    pads, strengths = shard_inputs(planes, gates, n, s)
+    return cdef_work(tuple(p[2:-2, 2:-2] for p in pads), strengths, bd,
+                     subx, suby, pads)
 
 
 def frame_inputs(rng, H, W, bd, fmt, gates, dev):
@@ -322,37 +369,6 @@ def frame_inputs(rng, H, W, bd, fmt, gates, dev):
             suby)
 
 
-def filter_inputs(rng, H, W, bd, dev):
-    """A random plane and random per-8x8-unit CDEF maps (primary and
-    secondary strengths, all 8 directions), as _cdef_core builds them;
-    also the per-unit (apply, pri > 0, sec > 0) for the work count."""
-    cs = bd - 8
-    uH, uW = (H + 7) // 8, (W + 7) // 8
-
-    def expand(u):
-        px = np.repeat(np.repeat(u, 8, 0), 8, 1)[:H, :W]
-        return torch.as_tensor(np.ascontiguousarray(px, np.int32),
-                               device=dev)
-
-    def shift_for(s, d):
-        return np.maximum(0, d - np.floor(np.log2(np.maximum(s, 1)))
-                          .astype(np.int64))
-
-    pri_u = rng.integers(0, 16, (uH, uW)) << cs
-    sec_u = rng.choice([0, 1, 2, 4], (uH, uW)) << cs
-    dir_u = rng.integers(0, 8, (uH, uW))
-    damping = int(rng.integers(3, 7)) + cs
-    plane = torch.as_tensor(rng.integers(0, 1 << bd, (H, W)).astype(np.int32),
-                            device=dev)
-    apply_u = (pri_u > 0) | (sec_u > 0)
-    maps = [expand(pri_u), expand(sec_u), expand(dir_u),
-            expand(shift_for(pri_u, damping)),
-            expand(shift_for(sec_u, damping)),
-            expand(apply_u.astype(np.int32))]
-    units = tuple(torch.as_tensor(a) for a in (apply_u, pri_u > 0, sec_u > 0))
-    return plane, maps, cs, units
-
-
 def check_frame(cdef, planes, gates, bd, damping, subx, suby, what):
     got = cdef.cdef_frame(planes, *gates, bd, damping, subx, suby)
     ref = cdef._cdef_core(planes, *gates, bd, damping, subx, suby)
@@ -378,7 +394,7 @@ def time_frame(cdef, planes, gates, bd, damping, subx, suby, int_rate,
     w = cuda_ms(run, 50)
     p = cuda_ms(lambda: cdef._cdef_core(planes, *gates, bd, damping, subx,
                                         suby), plain_iters)
-    nbytes, ops = frame_work(planes, gates, bd, subx, suby)
+    nbytes, ops = cdef_work(planes, gates, bd, subx, suby)
     b, by = bound(nbytes, ops, int_rate)
     log(f"cdef_frame {what}: device {k:.4f} ms (wrapper-inclusive "
         f"{w:.4f} ms), plain {p:.4f} ms, bound {b:.4f} ms ({by}; "
@@ -415,30 +431,33 @@ def phase_kernels(dev, int_rate):
         f"(72x136 in 4 formats x 8/10-bit x {len(GATES)} strength kinds, "
         f"1080p 4:2:0 8/10-bit; max abs err {max_frame})")
 
-    # the per-plane kernel
-    max_err = 0
-    for (H, W) in [(64, 64), (40, 72), (24, 128), (1080, 1920), (540, 960)]:
+    # the shard kernel: every shard of frames cut into 1, 2 and 4 column
+    # shards (shard widths 160, 80, 40 and 960, 480: some not multiples
+    # of 64), with the pads cdef_local builds and with random values in
+    # their halo columns
+    n = 0
+    for fmt in FORMATS:
         for bd in (8, 10):
-            plane, maps, cs, _ = filter_inputs(rng, H, W, bd, dev)
-            got = cdef.filter_plane(plane, *maps, cs)
-            ref = cdef._filter_plane(plane, *maps, cs)
-            err = int((got - ref).abs().max())
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(f"cdef_filter != plain at {H}x{W} "
-                                     f"{bd}-bit: max abs err {err}")
-    # a caller-built border (the column-sharded path's halos): the taps
-    # read the pad everywhere, the centre pixel the plane; a fully random
-    # pad tells the two apart
-    plane, maps, cs, _ = filter_inputs(rng, 64, 96, 8, dev)
-    pad = torch.as_tensor(rng.integers(0, 256, (68, 100)).astype(np.int32),
-                          device=dev)
-    got = cdef.filter_plane(plane, *maps, cs, pad=pad)
-    ref = cdef._filter_plane(plane, *maps, cs, pad=pad)
-    if not torch.equal(got, ref):
-        raise AssertionError("cdef_filter != plain with a caller pad")
-    log(f"kernel cdef_filter: byte-equal to _filter_plane on 5 shapes x "
-        f"8/10-bit + caller pad (max abs err {max_err})")
+            for gates in GATES:
+                planes, g, damping, sx, sy = frame_inputs(
+                    rng, 72, 160, bd, fmt, gates, dev)
+                for shards in (1, 2, 4):
+                    for halo in (None, rng):
+                        n += check_shards(
+                            cdef, planes, g, bd, damping, sx, sy, shards,
+                            f"72x160 {fmt} {bd}-bit {gates}", halo)
+    for bd in (8, 10):
+        for gates in ("mixed", "all_taps"):
+            planes, g, damping, sx, sy = frame_inputs(
+                rng, 1080, 1920, bd, "420", gates, dev)
+            for shards in (2, 4):
+                n += check_shards(cdef, planes, g, bd, damping, sx, sy,
+                                  shards, f"1080x1920 420 {bd}-bit {gates}",
+                                  rng if gates == "mixed" else None)
+    log(f"kernel cdef_filter: byte-equal to _cdef_shard_core on {n} shards "
+        f"(72x160 in 4 formats x 8/10-bit x {len(GATES)} strength kinds x "
+        f"1/2/4 shards, 1080p 4:2:0 8/10-bit x 2/4 shards; halo columns "
+        f"of the neighbours and random; one launch a shard; max abs err 0)")
 
     # times at 1080p 4:2:0: the frame kernel on random all-tap strengths
     planes, g, damping, sx, sy = frame_inputs(rng, 1080, 1920, 8, "420",
@@ -446,33 +465,36 @@ def phase_kernels(dev, int_rate):
     frame = time_frame(cdef, planes, g, 8, damping, sx, sy, int_rate,
                        "1080p 4:2:0 8-bit, random all-tap strengths")
     frame["max_abs_err"] = max_frame
-    # the per-plane kernel: one luma and two chroma launches a frame
-    t_k = t_w = t_p = nbytes = ops = 0
-    for (H, W), reps in (((1080, 1920), 1), ((540, 960), 2)):
-        plane, maps, cs, (app, pon, son) = filter_inputs(rng, H, W, 8, dev)
+    return frame
 
-        def run():
-            cdef.filter_plane(plane, *maps, cs)
-        k = kernel_ms(run, "cdef_filter_kernel", 50)
-        w = cuda_ms(run, 50)
-        p = cuda_ms(lambda: cdef._filter_plane(plane, *maps, cs), 5)
-        nb = filter_bytes(H, W, int((maps[5] != 0).sum()), False)
-        op = filter_ops(app, pon, son, 64)
-        log(f"cdef_filter {H}x{W}: device {k:.4f} ms (wrapper-inclusive "
-            f"{w:.4f} ms), plain {p:.4f} ms")
-        t_k += reps * k
-        t_w += reps * w
-        t_p += reps * p
-        nbytes += reps * nb
-        ops += reps * op
-    b, by = bound(nbytes, ops, int_rate)
-    log(f"cdef_filter 1080p 4:2:0 frame (3 launches): device {t_k:.4f} ms "
-        f"(wrapper-inclusive {t_w:.4f} ms), plain {t_p:.4f} ms, bound "
-        f"{b:.4f} ms ({by}; {nbytes} bytes, {ops} int32 ops), "
-        f"{b / t_k:.3f} of the bound")
-    filt = {"max_abs_err": max_err, "ms": t_k, "wrapper_ms": t_w,
-            "plain_ms": t_p, "bound_ms": b, "bound_by": by}
-    return frame, filt
+
+def check_shards(cdef, planes, gates, bd, damping, subx, suby, n, what,
+                 halo_rng=None):
+    """Every column shard of n of a frame: one `cdef_shard` launch, held
+    byte-equal to `_cdef_shard_core` on the same inputs; with
+    `halo_rng`, random values in every pad's halo columns first (a tap
+    that reads CDEF_VERY_LARGE, or the wrong side, where a pad has a
+    neighbour's pixel shows).  Returns the shards checked."""
+    for s in range(n):
+        pads, strengths = shard_inputs(planes, gates, n, s)
+        if halo_rng is not None:
+            for p in pads:
+                for cols in (slice(0, 2), slice(-2, None)):
+                    p[2:-2, cols] = torch.as_tensor(halo_rng.integers(
+                        0, 1 << bd, (p.shape[0] - 4, 2)).astype(np.int32),
+                        device=p.device)
+        before = cdef.launches
+        got = cdef.cdef_shard(pads, *strengths, bd, damping, subx, suby)
+        ref = cdef._cdef_shard_core(pads, *strengths, bd, damping, subx,
+                                    suby)
+        err = max(int((a - b).abs().max()) for a, b in zip(got, ref))
+        if err or len(got) != len(ref) or cdef.launches != before + 1:
+            raise AssertionError(
+                f"cdef_filter != plain at {what}, shard {s} of {n}"
+                f"{', random halos' if halo_rng else ''}: max abs err "
+                f"{err}, {len(got)} planes (plain {len(ref)}), launches "
+                f"{cdef.launches - before}")
+    return n
 
 
 def cdef_frames(datas):
@@ -493,7 +515,7 @@ def cdef_frames(datas):
 
 def check_launches(cdef, n_cdef, what):
     """One frame-kernel launch per frame with CDEF on, none of the
-    per-plane kernel."""
+    shard kernel."""
     if cdef.frame_launches != n_cdef or cdef.launches != 0:
         raise AssertionError(
             f"{what}: cdef_frame launches {cdef.frame_launches} != "
@@ -924,36 +946,8 @@ def phase_host(manifest, dev):
     return launches
 
 
-def shard_work(planes, gates, bd, subx, suby, n, s):
-    """(bytes, int32 operations) of the 3 `cdef_filter` launches of space
-    shard `s` of `n`: `filter_bytes` of each shard plane with its
-    bordered pad; the taps that are on in each of the shard's units with
-    something to apply."""
-    from av1dec_tpu_torch.ops.kernels.cdef import _directions, _ilog2
-    y_pri, y_sec, uv_pri, uv_sec = gates
-    _, var = _directions(planes[0], bd)
-    pri_adj = torch.where((y_pri > 0) & (var != 0),
-                          (y_pri * (4 + _ilog2(var >> 6)) + 8) >> 4, 0)
-    uw = y_pri.shape[1] // n
-    cols = slice(s * uw, (s + 1) * uw)
-    y_app = ((pri_adj > 0) | (y_sec > 0))[:, cols]
-    uv_app = ((uv_pri > 0) | (uv_sec > 0))[:, cols]
-    uv_px = 64 >> (subx + suby)
-    ops = filter_ops(y_app, (pri_adj > 0)[:, cols], (y_sec > 0)[:, cols],
-                     64)
-    if len(planes) > 1:
-        ops += 2 * filter_ops(uv_app, (uv_pri > 0)[:, cols],
-                              (uv_sec > 0)[:, cols], uv_px)
-    nbytes = 0
-    for pl, p in enumerate(planes):
-        n_apply = int(uv_app.sum()) * uv_px if pl else int(y_app.sum()) * 64
-        nbytes += filter_bytes(p.shape[0], p.shape[1] // n, n_apply, True)
-    return nbytes, ops
-
-
 def phase_scale_out(manifest, dev, int_rate, frame0):
-    """7b-e; returns the `cdef_filter` launches of the checked calls and
-    the kernel's measurements on rank 0's call at the first n_space."""
+    """7b-e; returns the `cdef_filter` launches of the checked calls."""
     import tempfile
 
     from av1dec_tpu_torch.container import decode_gops_parallel, read_ivf
@@ -1020,36 +1014,33 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                                      f"differ from the manifest")
             for n in N_SPACE:
                 c = rec["cdef"][str(n)]
-                if c["md5"] != whole or c["launches"] != 3 or \
+                if c["md5"] != whole or c["launches"] != 1 or \
                         c["max_abs_err"]:
                     raise AssertionError(
                         f"rank {rec['rank']} n_space {n}: sharded CDEF "
                         f"equal to _cdef_core: {c['md5'] == whole}, "
-                        f"cdef_filter launches {c['launches']} (3 "
-                        f"expected), max abs err against _filter_plane "
-                        f"{c['max_abs_err']}")
+                        f"cdef_filter launches {c['launches']} (1 "
+                        f"expected), max abs err against "
+                        f"_cdef_shard_core {c['max_abs_err']}")
                 launches += c["launches"]
-                nbytes, ops = shard_work(planes, gates, bd, sx, sy, n,
-                                         c["space_index"])
-                b, by = bound(nbytes, ops, int_rate)
+                terms = bound_terms(*shard_work(
+                    planes, gates, bd, sx, sy, n, c["space_index"]),
+                    int_rate)
                 rows.append({"rank": rec["rank"], "n_space": n,
                              "shard_widths": c["shard_widths"],
                              "kernel_ms": c["kernel_ms"],
                              "kernels_per_call": c["kernels_per_call"],
+                             "wrapper_ms": c["wrapper_ms"],
                              "plain_ms": c["plain_ms"],
-                             "halo_ms": c["halo_ms"], "bound_ms": b,
-                             "bound_by": by,
-                             "share_of_bound": b / c["kernel_ms"]})
-                if rec["rank"] == 0 and n == N_SPACE[0]:
-                    path = {"ms": c["kernel_ms"],
-                            "plain_ms": c["plain_ms"], "bound_ms": b,
-                            "bound_by": by}
+                             "halo_ms": c["halo_ms"], **terms,
+                             "share_of_bound":
+                             terms["bound_ms"] / c["kernel_ms"]})
         log(f"sharded CDEF: {SCALE_RANKS} gloo ranks on the card, n_space "
             f"{' and '.join(map(str, N_SPACE))}: every rank byte-equal to "
-            f"_cdef_core on the whole frame, 3 cdef_filter launches per "
-            f"rank per call ({launches}), each byte-equal to _filter_plane "
-            f"on its shard and pad; sharded frames 0-1 at data=2 "
-            f"match the manifest on every rank (frames "
+            f"_cdef_core on the whole frame, 1 cdef_filter launch per "
+            f"rank per call ({launches}), each byte-equal to "
+            f"_cdef_shard_core on its bordered planes; sharded frames 0-1 "
+            f"at data=2 match the manifest on every rank (frames "
             f"{res[0]['frames_s']:.3f} s on rank 0); launch "
             f"{t_launch:.3f} s")
         log(json.dumps({"sharded_cdef": rows, "card": card_line()}))
@@ -1061,7 +1052,7 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                      timeout=200)[0]
         c = res["cdef"]["1"]
         if res["backend"] != "nccl" or res["all_reduce"] != 0 or \
-                c["md5"] != whole or c["launches"] != 3 or \
+                c["md5"] != whole or c["launches"] != 1 or \
                 c["max_abs_err"]:
             raise AssertionError(f"NCCL rank: backend {res['backend']}, "
                                  f"equal to _cdef_core {c['md5'] == whole}"
@@ -1069,10 +1060,10 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                                  f", max abs err {c['max_abs_err']}")
         launches += c["launches"]
         log(f"NCCL: world-size-1 group (backend picked: {res['backend']}), "
-            f"sharded CDEF at n_space 1 byte-equal to _cdef_core, 3 "
-            f"cdef_filter launches byte-equal to _filter_plane; launch "
+            f"sharded CDEF at n_space 1 byte-equal to _cdef_core, 1 "
+            f"cdef_filter launch byte-equal to _cdef_shard_core; launch "
             f"{time.perf_counter() - t0:.3f} s")
-    return launches, path
+    return launches
 
 
 def read_tus(name):
@@ -1242,10 +1233,10 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
     on the card repeated, and `Decoder(DecoderConfig(space_shards=2))`
     on the intra stream's TU 0, once with the card repeated as its shard
     devices and once with the default devices (one card: the fallback);
-    every `cdef_filter` launch held against `_filter_plane` on the same
-    shard, maps and pad.  Returns (`cdef_frame` launches, `cdef_filter`
-    launches, the kernel's entry: its times on shard 0's launches at 2
-    shards)."""
+    every `cdef_shard` launch held against `_cdef_shard_core` on the same
+    bordered planes and strengths.  Returns (`cdef_frame` launches,
+    `cdef_filter` launches, the kernel's entry: its times on shard 0 of
+    2)."""
     import logging
 
     from av1dec_tpu_torch.api import Decoder
@@ -1258,15 +1249,14 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
                                        sy))
     want = manifest[BIG]["frames"][:1]
     datas = read_tus(BIG)[:1]
-    calls, errs = [], []
-    real = cdef.filter_plane
+    errs = []
+    real = cdef.cdef_shard
     real_devices = sharded_cdef.local_devices
 
-    def checked(plane, *args, pad=None):
-        out = real(plane, *args, pad=pad)
-        ref = cdef._filter_plane(plane, *args, pad)
-        errs.append(int((out - ref).abs().max()))
-        calls.append((plane, args, pad))
+    def checked(*args):
+        out = real(*args)
+        ref = cdef._cdef_shard_core(*args)
+        errs.append(max(int((o - r).abs().max()) for o, r in zip(out, ref)))
         return out
 
     def decode():
@@ -1276,22 +1266,20 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
         return got
 
     filter_launches = 0
-    cdef.filter_plane = checked
+    cdef.cdef_shard = checked
     try:
         for n in SHARDS:
             cdef.launches = cdef.frame_launches = 0
             out = sharded_cdef.cdef_local(planes, tuple(gates) +
                                           (damping, sx, sy), bd, [dev] * n)
-            if plane_md5s(out) != whole or cdef.launches != 3 * n or \
+            if plane_md5s(out) != whole or cdef.launches != n or \
                     cdef.frame_launches or max(errs):
                 raise AssertionError(
                     f"cdef_local at {n} shards: equal to _cdef_core "
                     f"{plane_md5s(out) == whole}, cdef_filter launches "
-                    f"{cdef.launches} ({3 * n} expected), max abs err "
-                    f"against _filter_plane {max(errs)}")
+                    f"{cdef.launches} ({n} expected), max abs err "
+                    f"against _cdef_shard_core {max(errs)}")
             filter_launches += cdef.launches
-            if n == SHARDS[0]:
-                shard0 = calls[:3]
         cdef.launches = cdef.frame_launches = 0
         before = sharded_cdef.local_frames
         sharded_cdef.local_devices = lambda d: [dev, dev]
@@ -1299,16 +1287,16 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
             got = decode()
         finally:
             sharded_cdef.local_devices = real_devices
-        if got != want or cdef.launches != 6 or cdef.frame_launches or \
+        if got != want or cdef.launches != 2 or cdef.frame_launches or \
                 sharded_cdef.local_frames != before + 1 or max(errs):
             raise AssertionError(
                 f"Decoder space_shards=2 on the card repeated: equal to "
                 f"the manifest {got == want}, cdef_filter launches "
-                f"{cdef.launches} (6 expected), cdef_frame launches "
+                f"{cdef.launches} (2 expected), cdef_frame launches "
                 f"{cdef.frame_launches}, max abs err {max(errs)}")
         filter_launches += cdef.launches
     finally:
-        cdef.filter_plane = real
+        cdef.cdef_shard = real
     n_checked = len(errs)
 
     warned = []
@@ -1335,31 +1323,27 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
         f"shards on the card repeated equals _cdef_core on {BIG} frame 0; "
         f"Decoder(space_shards=2) with the card twice as the process's "
         f"devices matches the manifest on TU 0; {filter_launches} "
-        f"cdef_filter launches, each "
-        f"({n_checked}) byte-equal to _filter_plane on its shard, maps and "
-        f"pad; with the default devices (one card) it logs "
-        f"'{warned[0]}', runs cdef_frame and matches the manifest")
+        f"cdef_filter launches, one a shard, each ({n_checked}) "
+        f"byte-equal to _cdef_shard_core on its bordered planes; with the "
+        f"default devices (one card) it logs '{warned[0]}', runs "
+        f"cdef_frame and matches the manifest")
 
-    def run():
-        for plane, args, pad in shard0:
-            real(plane, *args, pad=pad)
-
-    def plain():
-        for plane, args, pad in shard0:
-            cdef._filter_plane(plane, *args, pad)
-    k = kernel_ms(run, "cdef_filter_kernel", 50)
-    w = cuda_ms(run, 50)
-    p = cuda_ms(plain, 5)
-    nbytes, ops = shard_work(planes, gates, bd, sx, sy, SHARDS[0], 0)
-    b, by = bound(nbytes, ops, int_rate)
-    shapes = [tuple(plane.shape) for plane, _, _ in shard0]
+    # shard 0 of 2: the inputs of cdef_local's first launch at 2 shards
+    pads, strengths = shard_inputs(planes, gates, SHARDS[0], 0)
+    args = (pads, *strengths, bd, damping, sx, sy)
+    k = kernel_ms(lambda: cdef.cdef_shard(*args), "cdef_shard_kernel", 50)
+    w = cuda_ms(lambda: cdef.cdef_shard(*args), 50)
+    p = cuda_ms(lambda: cdef._cdef_shard_core(*args), 5)
+    terms = bound_terms(*shard_work(planes, gates, bd, sx, sy, SHARDS[0], 0),
+                        int_rate)
     log(json.dumps({"space_shards_cdef": {
-        "shards": SHARDS[0], "shard": 0, "shapes": shapes,
-        "kernel_ms": k, "wrapper_ms": w, "plain_ms": p, "bound_ms": b,
-        "bound_by": by, "share_of_bound": b / k, "card": card_line()}}))
+        "shards": SHARDS[0], "shard": 0,
+        "pads": [tuple(t.shape) for t in pads], "kernel_ms": k,
+        "wrapper_ms": w, "plain_ms": p, **terms,
+        "share_of_bound": terms["bound_ms"] / k, "card": card_line()}}))
     return frame_launches, filter_launches, {
-        "max_abs_err": max(errs), "ms": k, "plain_ms": p, "bound_ms": b,
-        "bound_by": by}
+        "max_abs_err": max(errs), "ms": k, "plain_ms": p,
+        "bound_ms": terms["bound_ms"], "bound_by": terms["bound_by"]}
 
 
 def timed_phase(name, fn, *args):
@@ -1391,7 +1375,7 @@ def main():
     with open(os.path.join(TESTDATA, "manifest.json")) as f:
         manifest = json.load(f)
 
-    frame, filt = timed_phase("2 (kernels)", phase_kernels, dev, int_rate)
+    frame = timed_phase("2 (kernels)", phase_kernels, dev, int_rate)
     timed_phase("2 (B7)", phase_b7, dev)
     launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
                                    int_rate)
@@ -1399,8 +1383,8 @@ def main():
     launches += timed_phase("5 (with 7a)", phase_inter, manifest, dev,
                             int_rate)
     launches += timed_phase("6", phase_host, manifest, dev)
-    filter_launches, _ = timed_phase("7b-e", phase_scale_out, manifest,
-                                     dev, int_rate, frame0)
+    filter_launches = timed_phase("7b-e", phase_scale_out, manifest, dev,
+                                  int_rate, frame0)
     launches += timed_phase("8a", phase_compound, manifest, dev, int_rate)
     launches += timed_phase("8b", phase_wiener, manifest, dev)
     launches += timed_phase("8c", phase_batched_host, manifest, dev)
@@ -1408,11 +1392,10 @@ def main():
                                           manifest, dev, int_rate, frame0)
     launches += n_frame
     filter_launches += n_filter
-    # the per-plane kernel's entry: its times at the shapes of its
-    # Decoder-path launches (phase 8d: shard 0 of 2 in one process, the
-    # shapes of 7c's rank 0); its error over phases 2 and 8 (phase 7
-    # raises on any)
-    path["max_abs_err"] = max(path["max_abs_err"], filt["max_abs_err"])
+    # the shard kernel's entry: its times on the shard of its Decoder-path
+    # launches (phase 8d: shard 0 of 2 in one process, 7c's rank 0's
+    # shard at n_space 2); its error phase 8's (phases 2 and 7 raise on
+    # any)
 
     def line(name, replaces, k, n):
         return {"name": name, "route": "cuda",

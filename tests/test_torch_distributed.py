@@ -12,7 +12,8 @@ one of 4), whose results the tests read:
   ranks);
 - `decode_frames_sharded` of `multi`'s two frames over data=2 equals
   `DeviceRecon.run("cpu")` and the manifest;
-- in one process, `cdef_local` equals the whole-frame CDEF, and
+- in one process, `cdef_local` equals the whole-frame CDEF through one
+  `cdef_shard` call a shard, and
   `Decoder(DecoderConfig(space_shards=n))` decodes committed streams
   equal to the manifest on the shard path, with its two fallbacks.
 """
@@ -217,7 +218,7 @@ def test_decoder_refuses_space_shards(n, caplog, monkeypatch, native_lib):
     assert f"width 136 not divisible by 8*{n}" in text
 
 
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [1, 2, 4])
 def test_cdef_local_matches_whole_frame(n, cdef_input):
     """`cdef_local` on the tiles frame, the CPU repeated n times, equals
     the whole-frame `_cdef_core`."""
@@ -232,3 +233,35 @@ def test_cdef_local_matches_whole_frame(n, cdef_input):
     got = cdef_local(planes, gates, bd, [torch.device("cpu")] * n)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cdef_local_runs_one_cdef_shard_per_shard(n, cdef_input,
+                                                  monkeypatch):
+    """`cdef_local` filters each shard with one `cdef_shard` call (one
+    kernel launch on a card) on the shard's bordered planes, as
+    `_local_pad` builds them, and its columns of the strengths."""
+    import torch
+
+    from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.parallel.sharded_cdef import (_local_pad,
+                                                        cdef_local)
+    _, planes, gates, bd = cdef_input
+    calls = []
+    real = cdef.cdef_shard
+
+    def spy(pads, *args):
+        calls.append((pads, args))
+        return real(pads, *args)
+    monkeypatch.setattr(cdef, "cdef_shard", spy)
+    cdef_local(planes, gates, bd, [torch.device("cpu")] * n)
+    assert len(calls) == n
+    uw = gates[0].shape[1] // n
+    for s, (pads, args) in enumerate(calls):
+        assert len(pads) == len(planes)
+        for p, plane in zip(pads, planes):
+            assert torch.equal(p, _local_pad(torch.as_tensor(plane), s, n))
+        for got, g in zip(args[:4], gates[:4]):
+            assert torch.equal(got, torch.as_tensor(g)[:, s * uw:
+                                                       (s + 1) * uw])
+        assert args[4:] == (bd,) + tuple(gates[4:])
