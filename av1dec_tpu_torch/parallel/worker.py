@@ -176,11 +176,10 @@ def _time_cdef(planes, gates, bd, mesh, iters):
     """Mean device ms of the cdef_shard kernels and mean host ms of the
     halo exchanges of one cdef_sharded call, over `iters` calls."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from av1dec_tpu_torch.parallel import sharded_cdef
-    spent = [0.0]
+    from av1dec_tpu_torch.profiling import device_events
+    spent = []  # seconds of halo exchange, per cdef_sharded call
     real = sharded_cdef.exchange_halo_cols_fill
 
     def timed(*a):
@@ -188,34 +187,27 @@ def _time_cdef(planes, gates, bd, mesh, iters):
         t = time.perf_counter()
         out = real(*a)
         torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t
+        spent[-1] += time.perf_counter() - t
         return out
+
+    def call():
+        spent.append(0.0)
+        sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
+    # one trace on every rank, as the calls are collective: no retry
+    sharded_cdef.exchange_halo_cols_fill = timed
     try:
-        # a trace can miss the first launches after it starts: it starts
-        # with 3 calls and a marker kernel, and keeps what begins after it
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            sharded_cdef.exchange_halo_cols_fill = timed
-            for _ in range(iters):
-                sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
-            torch.cuda.synchronize()
+        ev = device_events(call, iters)
     finally:
         sharded_cdef.exchange_halo_cols_fill = real
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    marks = [e for e in ev if "spin_kernel" in e.name]
-    if not marks:
+    if ev is None:
         raise RuntimeError("the profiler recorded no marker kernel")
-    ev = [e for e in ev if "cdef_shard_kernel" in e.name and
-          e.time_range.start >= marks[-1].time_range.end]
+    ev = [e for e in ev if "cdef_shard_kernel" in e.name]
     if len(ev) != iters:
         raise RuntimeError(f"the profiler recorded {len(ev)} cdef_shard "
                            f"kernels for {iters} calls")
     return {"kernel_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 /
             iters, "kernels_per_call": len(ev) / iters,
-            "halo_ms": spent[0] * 1e3 / iters}
+            "halo_ms": sum(spent[-iters:]) * 1e3 / iters}
 
 
 def _frames_run(args, dev, res):

@@ -150,6 +150,8 @@ GOP_TUS = 4  # phase 7b: the first TUs (one GOP each) of BIG
 SCALE_RANKS = 4  # phase 7c-d: gloo ranks on the one card
 N_SPACE = (2, 4)  # phase 7c: space shards of sharded CDEF
 TIME_ITERS = 20  # phase 7c: timed sharded CDEF calls per rank
+# traces taken before a lost marker or kernel record fails a phase
+TRACE_ATTEMPTS = 3
 # H100 SXM data sheet: HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
 # int32 add, compare, min/max, shift and multiply-add results per clock
@@ -164,9 +166,14 @@ INT32_PER_CLOCK_PER_SM = 64
 CDEF_OPS_PER_TAP = 12
 CDEF_OPS_PER_PX = 8
 # int32 operations of the direction search of one 8x8 unit: 64 x (shift,
-# subtract) to centre the pixels, 8 x 64 partial-sum adds, 8 x 30 for the
-# squares and weighted sums of the costs, 16 for the first maximum
-DIR_OPS_PER_UNIT = 64 * 2 + 8 * 64 + 8 * 30 + 16
+# subtract) to centre the pixels, 8 x 30 for the squares and weighted
+# sums of the costs, 16 for the first maximum
+DIR_OPS_PER_UNIT = 64 * 2 + 8 * 30 + 16
+# int8 operations of its partial sums: 8 directions x 64 pixels, each a
+# multiply-add (2 operations) on the tensor cores (the kernels' mma.sync)
+DIR_INT8_OPS_PER_UNIT = 8 * 64 * 2
+# H100 SXM data sheet: dense int8 tensor-core rate
+INT8_OPS_PER_S = 1.979e15
 # (subx, suby) of each chroma format; None is mono
 FORMATS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "mono": None}
 GATES = ("mixed", "zero", "pri_only", "sec_only", "all_taps")
@@ -210,72 +217,52 @@ def cuda_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
-def _device_events(fn, iters, attempts=3):
-    """torch.profiler's device intervals of `iters` warm calls of fn().
-    A trace can miss the first launches after it starts, so it starts
-    with 10 more calls and a marker kernel (`torch.cuda._sleep`), and
-    only the intervals that begin after the marker are kept; a trace
-    without the marker is taken again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        marks = [e for e in ev if "spin_kernel" in e.name]
-        if marks:
-            return [e for e in ev
-                    if e.time_range.start >= marks[-1].time_range.end]
-    raise RuntimeError(f"the profiler recorded no marker kernel in "
-                       f"{attempts} traces")
+def _device_events(fn, iters, name=None):
+    """torch.profiler's device intervals of `iters` warm calls of fn()
+    (`profiling.device_events`); with `name`, the trace must hold `iters`
+    kernels whose name holds it.  A trace that lost the marker or one of
+    those kernels is taken again, up to TRACE_ATTEMPTS traces."""
+    from av1dec_tpu_torch.profiling import device_events
+    for _ in range(TRACE_ATTEMPTS):
+        ev = device_events(fn, iters)
+        if ev and (name is None or
+                   sum(name in e.name for e in ev) == iters):
+            return ev
+    raise RuntimeError(f"the profiler lost the marker or a {name} kernel "
+                       f"in {TRACE_ATTEMPTS} traces of {iters} calls")
 
 
 def device_ms(fn, iters):
     """(mean device milliseconds, kernels) per fn() call: every device
     interval (kernels and copies), so no host cost is counted."""
     ev = _device_events(fn, iters)
-    if not ev:
-        raise RuntimeError("the profiler recorded no device work")
     kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
     return (sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters,
             len(kernels) / iters)
 
 
-def kernel_ms(fn, name, iters, attempts=3):
+def kernel_ms(fn, name, iters):
     """Mean device milliseconds, per fn() call, of the kernels whose name
-    holds `name` (no host cost counted); fn() launches one such kernel.
-    A trace that lacks some of them is taken again."""
-    for _ in range(attempts):
-        ev = [e for e in _device_events(fn, iters) if name in e.name]
-        if len(ev) == iters:
-            return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
-    raise RuntimeError(f"the profiler recorded {len(ev)} {name} kernels "
-                       f"for {iters} calls, {attempts} times")
+    holds `name` (no host cost counted); fn() launches one such kernel."""
+    ev = [e for e in _device_events(fn, iters, name) if name in e.name]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
 
 
-def bound(nbytes, ops, int_rate):
-    """(bound ms, what sets it) of work of `nbytes` and `ops`."""
+def bound_terms(int_rate, nbytes, ops, int8_ops=0):
+    """Both terms of the bound of work of `nbytes`, `ops` int32 operations
+    and `int8_ops` on the tensor cores, the bound and what sets it."""
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = ops / int_rate * 1e3
-    return (b_ops, "operations") if b_ops > b_bytes else (b_bytes, "bytes")
+    b_ops = (ops / int_rate + int8_ops / INT8_OPS_PER_S) * 1e3
+    b, by = (b_ops, "operations") if b_ops > b_bytes else (b_bytes, "bytes")
+    return {"bytes": nbytes, "ops": ops, "int8_ops": int8_ops,
+            "bytes_ms": b_bytes, "ops_ms": b_ops, "bound_ms": b,
+            "bound_by": by}
 
 
-def bound_terms(nbytes, ops, int_rate):
-    """Both terms of the bound of work of `nbytes` and `ops`, the bound
-    and what sets it."""
-    b, by = bound(nbytes, ops, int_rate)
-    return {"bytes": nbytes, "ops": ops,
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": ops / int_rate * 1e3, "bound_ms": b, "bound_by": by}
+def bound(int_rate, nbytes, ops, int8_ops=0):
+    """(bound ms, what sets it) of the work of `bound_terms`."""
+    t = bound_terms(int_rate, nbytes, ops, int8_ops)
+    return t["bound_ms"], t["bound_by"]
 
 
 def filter_ops(apply, pri_on, sec_on, px):
@@ -288,12 +275,13 @@ def filter_ops(apply, pri_on, sec_on, px):
 
 
 def cdef_work(planes, gates, bd, subx, suby, pads=None):
-    """(bytes, int32 operations) that CDEF of one frame, or of one column
-    shard from its bordered planes `pads`, needs with these inputs: the
-    planes (or the pads, which hold the shard's pixels) read once, the
-    planes written once and the strengths read once; the direction search
-    of each unit with a primary strength, and the taps that are on in
-    each unit with something to apply."""
+    """(bytes, int32 operations, int8 operations) that CDEF of one frame,
+    or of one column shard from its bordered planes `pads`, needs with
+    these inputs: the planes (or the pads, which hold the shard's pixels)
+    read once, the planes written once and the strengths read once; the
+    direction search of each unit with a primary strength (its partial
+    sums in int8), and the taps that are on in each unit with something
+    to apply."""
     from av1dec_tpu_torch.ops.kernels.cdef import _directions, _ilog2
     y_pri, y_sec, uv_pri, uv_sec = gates
     chroma = len(planes) > 1
@@ -306,11 +294,12 @@ def cdef_work(planes, gates, bd, subx, suby, pads=None):
         ops += filter_ops((uv_pri > 0) | (uv_sec > 0), uv_pri > 0,
                           uv_sec > 0, 2 * (64 >> (subx + suby)))
         search = search | (uv_pri > 0)
-    ops += int(search.sum()) * DIR_OPS_PER_UNIT
+    searched = int(search.sum())
+    ops += searched * DIR_OPS_PER_UNIT
     nbytes = sum(4 * p.numel() for p in (planes if pads is None else pads))
     nbytes += sum(4 * p.numel() for p in planes) + \
         (4 if chroma else 2) * 4 * y_pri.numel()
-    return nbytes, ops
+    return nbytes, ops, searched * DIR_INT8_OPS_PER_UNIT
 
 
 def shard_inputs(planes, gates, n, s):
@@ -394,11 +383,12 @@ def time_frame(cdef, planes, gates, bd, damping, subx, suby, int_rate,
     w = cuda_ms(run, 50)
     p = cuda_ms(lambda: cdef._cdef_core(planes, *gates, bd, damping, subx,
                                         suby), plain_iters)
-    nbytes, ops = cdef_work(planes, gates, bd, subx, suby)
-    b, by = bound(nbytes, ops, int_rate)
+    nbytes, ops, ops8 = cdef_work(planes, gates, bd, subx, suby)
+    b, by = bound(int_rate, nbytes, ops, ops8)
     log(f"cdef_frame {what}: device {k:.4f} ms (wrapper-inclusive "
         f"{w:.4f} ms), plain {p:.4f} ms, bound {b:.4f} ms ({by}; "
-        f"{nbytes} bytes, {ops} int32 ops), {b / k:.3f} of the bound")
+        f"{nbytes} bytes, {ops} int32 ops, {ops8} int8 ops), "
+        f"{b / k:.3f} of the bound")
     return {"ms": k, "wrapper_ms": w, "plain_ms": p, "bound_ms": b,
             "bound_by": by}
 
@@ -710,7 +700,7 @@ def phase_inter(manifest, dev, int_rate):
     k_ms, n_k = device_ms(run, 20)
     w_ms = cuda_ms(run, 20)
     nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
-    b, by = bound(nbytes, ops, int_rate)
+    b, by = bound(int_rate, nbytes, ops)
     log(json.dumps({"mc_pass": {
         "frame": len(stats) - 1, "lanes": n_lanes, "pixels": px,
         "buckets": len(cfg[0]), "device_ms": k_ms, "kernels": n_k,
@@ -1023,9 +1013,8 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                         f"expected), max abs err against "
                         f"_cdef_shard_core {c['max_abs_err']}")
                 launches += c["launches"]
-                terms = bound_terms(*shard_work(
-                    planes, gates, bd, sx, sy, n, c["space_index"]),
-                    int_rate)
+                terms = bound_terms(int_rate, *shard_work(
+                    planes, gates, bd, sx, sy, n, c["space_index"]))
                 rows.append({"rank": rec["rank"], "n_space": n,
                              "shard_widths": c["shard_widths"],
                              "kernel_ms": c["kernel_ms"],
@@ -1148,7 +1137,7 @@ def phase_compound(manifest, dev, int_rate):
     k_ms, n_k = device_ms(run, 20)
     w_ms = cuda_ms(run, 20)
     nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
-    b, by = bound(nbytes, ops, int_rate)
+    b, by = bound(int_rate, nbytes, ops)
     log(json.dumps({"mc_pass_compound": {
         "mc_pass": last, "lanes": n_lanes, "compound_lanes": comp[last],
         "pixels": px, "buckets": len(cfg[0]), "device_ms": k_ms,
@@ -1334,8 +1323,8 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
     k = kernel_ms(lambda: cdef.cdef_shard(*args), "cdef_shard_kernel", 50)
     w = cuda_ms(lambda: cdef.cdef_shard(*args), 50)
     p = cuda_ms(lambda: cdef._cdef_shard_core(*args), 5)
-    terms = bound_terms(*shard_work(planes, gates, bd, sx, sy, SHARDS[0], 0),
-                        int_rate)
+    terms = bound_terms(int_rate, *shard_work(planes, gates, bd, sx, sy,
+                                              SHARDS[0], 0))
     log(json.dumps({"space_shards_cdef": {
         "shards": SHARDS[0], "shard": 0,
         "pads": [tuple(t.shape) for t in pads], "kernel_ms": k,

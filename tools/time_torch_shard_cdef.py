@@ -9,22 +9,18 @@ is held to the manifest) while the deblocked planes and strengths that
 its `cdef_frame` call gets are kept.  Each shard's inputs are the
 bordered planes `cdef_local` builds (`_local_pad`) and the shard's
 strengths.  A checkout's shard route is its `cdef.cdef_shard` (one
-kernel for every plane) where it has one, else `cdef._cdef_core(...,
-mk_pad=...)` (the route before it: the direction search, gating and
-per-pixel maps in eager torch, then one `cdef_filter` kernel a plane).
-Another checkout's `ops/kernels/cdef.py` and `cuda_build.py` are loaded
-under their own names and build its kernels into its own build
-directory.  For each version, in the order others, this, this, others
-reversed, and each shard it prints the device ms and kernels of one call
-(torch.profiler: every device interval), the ms of its `cdef_*` kernels
-alone, the wrapper-inclusive ms (CUDA events) and the pixels that differ
-from this tree's output; then each shard's bound (both terms, from
-`chip_smoke.shard_work`), the card's name and power limit, and a JSON
-line with all of it.
+kernel for every plane).  Another checkout's `ops/kernels/cdef.py` and
+`cuda_build.py` are loaded under their own names and build its kernels
+into its own build directory.  For each version, in the order others,
+this, this, others reversed, and each shard it prints the device ms and
+kernels of one call (torch.profiler: every device interval), the ms of
+its `cdef_shard` kernel alone, the wrapper-inclusive ms (CUDA events) and
+the pixels that differ from this tree's output; then each shard's bound
+(both terms, from `chip_smoke.shard_work`), the card's name and power
+limit, and a JSON line with all of it.
 """
 import argparse
 import contextlib
-import importlib.util
 import json
 import os
 import sys
@@ -35,18 +31,12 @@ sys.path.insert(0, _REPO)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import other_checkout  # noqa: E402
 
 SHARDS = (2, 4)
-_BUILD_MOD = "av1dec_tpu_torch.ops.kernels.cuda_build"
-
-
-def _load(root, name, tag):
-    path = os.path.join(root, "av1dec_tpu_torch", "ops", "kernels",
-                        name + ".py")
-    spec = importlib.util.spec_from_file_location(f"{tag}_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+KERNEL = "cdef_shard_kernel"
+_KERNELS = "av1dec_tpu_torch.ops.kernels"
+_BUILD_MOD = _KERNELS + ".cuda_build"
 
 
 class Version:
@@ -58,8 +48,10 @@ class Version:
         if root is None:
             self.cdef, self.build = cdef, cuda_build
         else:
-            self.cdef = _load(root, "cdef", tag)
-            self.build = _load(root, "cuda_build", tag)
+            self.cdef = other_checkout.load(root, _KERNELS + ".cdef", tag)
+            self.build = other_checkout.load(root, _BUILD_MOD, tag)
+            if not hasattr(self.cdef, "cdef_shard"):
+                raise SystemExit(f"{root} has no cdef.cdef_shard")
         self.build.build_kernels()
 
     @contextlib.contextmanager
@@ -73,20 +65,10 @@ class Version:
         finally:
             sys.modules[_BUILD_MOD] = real
 
-    def launches_per_call(self, args):
-        """Kernel launches of one shard route call: 1, or 1 a plane."""
-        return 1 if hasattr(self.cdef, "cdef_shard") else len(args[0])
-
     def route(self, pads, strengths, bd, damping, subx, suby):
         """A function of no argument that runs the shard route once."""
-        if hasattr(self.cdef, "cdef_shard"):
-            return lambda: self.cdef.cdef_shard(pads, *strengths, bd,
-                                                damping, subx, suby)
-        shards = tuple(p[2:-2, 2:-2].contiguous() for p in pads)
-        by_id = {id(s): p for s, p in zip(shards, pads)}
-        return lambda: self.cdef._cdef_core(
-            shards, *strengths, bd, damping, subx, suby,
-            mk_pad=lambda t: by_id[id(t)])
+        return lambda: self.cdef.cdef_shard(pads, *strengths, bd, damping,
+                                            subx, suby)
 
 
 def frame0(dev):
@@ -115,14 +97,11 @@ def frame0(dev):
     return planes, gates, bd, damping, subx, suby
 
 
-def time_route(fn, iters, per_call):
-    """Device ms and kernels of one fn() call, the ms of its `per_call`
-    `cdef_*` kernels alone, and the wrapper-inclusive ms."""
-    ev = cs._device_events(fn, iters)
-    own = [e for e in ev if "cdef_" in e.name]
-    if len(own) != per_call * iters:
-        raise RuntimeError(f"the profiler recorded {len(own)} cdef kernels "
-                           f"for {iters} calls")
+def time_route(fn, iters):
+    """Device ms and kernels of one fn() call, the ms of its
+    `cdef_shard` kernel alone, and the wrapper-inclusive ms."""
+    ev = cs._device_events(fn, iters, KERNEL)
+    own = [e for e in ev if KERNEL in e.name]
     kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
     return {"device_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 /
             iters, "kernels": len(kernels) / iters,
@@ -155,15 +134,14 @@ def main():
                                                      damping, subx, suby),
                            "ref": this.route(pads, strengths, bd, damping,
                                              subx, suby)(),
-                           "bound": cs.bound_terms(*cs.shard_work(
-                               planes, gates, bd, subx, suby, n, s),
-                               int_rate)})
+                           "bound": cs.bound_terms(int_rate, *cs.shard_work(
+                               planes, gates, bd, subx, suby, n, s))})
     runs = []
     for v in others + [this, this] + others[::-1]:
         with v.active():
             for sh in shards:
                 fn = v.route(*sh["args"])
-                t = time_route(fn, a.iters, v.launches_per_call(sh["args"]))
+                t = time_route(fn, a.iters)
                 t["differing_px"] = sum(int((o != r).sum()) for o, r in
                                         zip(fn(), sh["ref"]))
                 t.update(version=v.tag, n=sh["n"], shard=sh["s"],

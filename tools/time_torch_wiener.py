@@ -14,7 +14,6 @@ output, in the order other, this, this, other; then the bytes bound and
 the card's name and power limit, and a JSON line with all of it.
 """
 import argparse
-import importlib.util
 import json
 import os
 import sys
@@ -25,16 +24,9 @@ sys.path.insert(0, _REPO)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import other_checkout  # noqa: E402
 
 STREAM = "bench_1080p_host_cq40"
-
-
-def _load_lr(root):
-    path = os.path.join(root, "av1dec_tpu_torch", "ops", "kernels", "lr.py")
-    spec = importlib.util.spec_from_file_location("other_lr", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def key_frame_inputs(dev):
@@ -102,7 +94,8 @@ def main():
     versions = {"this": lr.wiener_plane}
     order = ["this", "this"]
     if a.other:
-        versions["other"] = _load_lr(a.other).wiener_plane
+        versions["other"] = other_checkout.load(
+            a.other, "av1dec_tpu_torch.ops.kernels.lr", "other").wiener_plane
         order = ["other", "this", "this", "other"]
     ref = [versions["this"](*c) for c in calls]
     runs = []
