@@ -45,6 +45,7 @@ import torch
 
 from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.bindings import NativeParser
+from av1dec_tpu_torch.ops.kernels import wavefront as _wavefront
 from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
                                                     postfilter_batch,
                                                     prep_batch, scan_batch,
@@ -160,6 +161,7 @@ class Decoder:
                                     "height": slot.height,
                                     "dev_planes": slot.dev_planes}
             t0 = time.monotonic()
+            scans0 = _wavefront.launches
             dr = DeviceRecon(seq, hdr, plans, config=self.config,
                              refs=refs)
             dev_keep = host_reason = None
@@ -194,6 +196,9 @@ class Decoder:
                 "host_reason": host_reason,
                 "ms": round((time.monotonic() - t0) * 1000, 2),
                 "inter_plan_ms": round(dr.inter_plan_s * 1000, 2),
+                # launches of the scan kernel (a card's device path: one
+                # per wavefront level with lanes)
+                "scan_launches": _wavefront.launches - scans0,
             })
             slot = _Slot(planes=planes,
                          width=hdr["upscaled_width"],

@@ -30,6 +30,7 @@ KERNELS = {
     "cdef_filter": ("cdef_shard", [_P] * 10 + [_I] * 7 + [_P]),
     "cdef_frame": ("cdef_frame",
                    [_P] * 3 + [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P]),
+    "wavefront_scan": ("wavefront_level", [_P, _I, _I, _P]),
 }
 
 _loaded = {}

@@ -1,14 +1,23 @@
-"""Wavefront intra reconstruction on the device — eager torch scan.
+"""Wavefront intra reconstruction on the device.
 
 Port of `av1dec_tpu.ops.kernels.wavefront` [SPEC §7.11.2, SURVEY §7.1].
 The host builds a level schedule with all control flow precomputed as
 per-block int scalars (`pipeline/wavefront.py`); the device executes
 gathers, integer arithmetic and scatters.
 
-The lanes and windows are the JAX package's: blocks are grouped into
-shape buckets T in {16, 32, 64}, each level is split into windows of at
-most Bmax lanes, lockstep across buckets (`make_windows`, unchanged).
-What differs, because torch runs eagerly:
+`scan_into` is the whole-batch scan.  A CUDA frame buffer runs the
+hand-written kernel `csrc/wavefront_scan.cu`, one launch per wavefront
+level with every lane of the level (all shape buckets) in it, from the
+per-level lane ranges `plan_levels` builds (counted in `launches`); a
+CPU buffer runs the plain version `_scan_plain`; nothing else is
+accepted.  The schedule puts every block's prediction inputs at strictly
+earlier levels, so the lanes of one level are independent and the
+windows of the plain version are not needed on the card.
+
+`_scan_plain` keeps the JAX package's lanes and windows: blocks are
+grouped into shape buckets T in {16, 32, 64}, each level is split into
+windows of at most Bmax lanes, lockstep across buckets (`make_windows`,
+unchanged).  What differs, because torch runs eagerly:
 
 * The scan is a host loop over windows.  Every decision the JAX scan
   takes at run time with `lax.cond` (empty window, and the expensive
@@ -60,6 +69,15 @@ _FI_TAPS = np.asarray(FILTER_INTRA_TAPS, np.int32)[:, :, :7]  # [5, 8, 7]
 
 # per-window host flags (plan_windows): columns of the [S, nb, 5] array
 FLAG_DIR, FLAG_PAL, FLAG_CFL, FLAG_FI_PATCHES, FLAG_INTER = range(5)
+
+# launches of the CUDA scan kernel in this process (one per level)
+launches = 0
+# the kernel's int64 parameter array (`csrc/wavefront_scan.cu`, enum
+# Param): pointers, then ints; up to 3 buckets
+_PARAMS = ["frame", "res", "rows0", "rows1", "rows2", "pal0", "pal1",
+           "pal2", "levels", "kern", "sm", "fi_taps", "n", "res_len",
+           "res_bytes", "sm_len", "nb", "t0", "t1", "t2", "bd", "sub_x",
+           "sub_y", "eef"]
 
 
 def make_windows(starts_by_t, counts_by_t, bcaps, ts):
@@ -127,15 +145,27 @@ def plan_windows(packed_by_t, starts_by_t, counts_by_t, buckets):
     return ws, wc, window_flags(packed_by_t, ws, wc, ts)
 
 
+def plan_levels(starts_by_t, counts_by_t, ts):
+    """Per-level lane ranges of a batch for the kernel: (table [L, nb, 2]
+    int32, (start, count) of each level's run of lanes in each bucket's
+    rows, and lanes [L] int64, the lanes of each level over all
+    buckets), both numpy."""
+    table = np.stack([np.stack([np.asarray(starts_by_t[t], np.int32),
+                                np.asarray(counts_by_t[t], np.int32)],
+                               axis=1) for t in ts], axis=1)
+    return table, table[:, :, 1].astype(np.int64).sum(axis=1)
+
+
 @functools.lru_cache(maxsize=None)
 def _consts(device):
-    """The scan's constant tables on `device`, uploaded once."""
+    """The scan's constant tables on `device`, uploaded once, contiguous
+    (the kernel reads them by pointer)."""
     i32 = dict(dtype=torch.int32, device=device)
     return {
         "ar": torch.arange(4 * 64 + 3, **i32),
-        "kern": torch.as_tensor(_KERN, **i32),
-        "sm": torch.as_tensor(_SM, **i32),
-        "fi_taps": torch.as_tensor(_FI_TAPS, **i32),
+        "kern": torch.as_tensor(_KERN, **i32).contiguous(),
+        "sm": torch.as_tensor(_SM, **i32).contiguous(),
+        "fi_taps": torch.as_tensor(_FI_TAPS, **i32).contiguous(),
     }
 
 
@@ -492,14 +522,30 @@ def _apply_bucket(frame, n, rows, res_flat, pal_t, flags, *, T, bd, sub_x,
     frame[fidx.reshape(-1).long()] = out.reshape(-1)
 
 
-def scan_into(frame, packed, res_flat, pal_tensors, config, windows):
+def scan_into(frame, packed, res_flat, pal_tensors, config, windows,
+              levels):
     """Whole-batch wavefront scan, in place.
 
     frame: flat int32 [n + 1] buffer whose last slot is the trash slot;
     packed: {T: [Ncap, F] int32}; res_flat: packed residual pixels (int16
     for 8-bit); pal_tensors: {T: [P, T, T] int32}, all on one device.
     config: (((T, Bmax), ...), bd, sub_x, sub_y, eef[, has_inter]).
-    windows: (ws, wc, flags) host arrays from `plan_windows`."""
+    windows: (ws, wc, flags) host arrays from `plan_windows`; levels:
+    (table, lanes) from `plan_levels` and the table on the frame's
+    device.  A CUDA frame runs the kernel (`levels`), a CPU frame the
+    plain version (`windows`)."""
+    dev = frame.device
+    if dev.type == "cpu":
+        _scan_plain(frame, packed, res_flat, pal_tensors, config, windows)
+    elif dev.type == "cuda":
+        _scan_kernel(frame, packed, res_flat, pal_tensors, config, levels)
+    else:
+        raise ValueError(f"scan_into: unsupported device {dev}")
+
+
+def _scan_plain(frame, packed, res_flat, pal_tensors, config, windows):
+    """The plain version of the scan: the window loop over
+    `_apply_bucket`, on any device (`scan_into`'s arguments)."""
     (buckets, bd, sub_x, sub_y, eef, *_has_inter) = config
     ws, wc, flags = windows
     n = frame.shape[0] - 1
@@ -513,6 +559,68 @@ def scan_into(frame, packed, res_flat, pal_tensors, config, windows):
                 _apply_bucket(frame, n, packed[T][st[bi]:st[bi] + cn[bi]],
                               res_flat, pal_tensors[T], fl[bi], T=T, bd=bd,
                               sub_x=sub_x, sub_y=sub_y, eef=eef, c=c)
+
+
+def _scan_kernel(frame, packed, res_flat, pal_tensors, config, levels):
+    """The scan on the card: one `wavefront_level` launch for each level
+    with lanes, counted in `launches`.  Raises on inputs the kernel does
+    not take or a failed launch."""
+    global launches
+    (buckets, bd, sub_x, sub_y, eef, *_has_inter) = config
+    table_np, lanes, table = levels
+    dev = frame.device
+    ts = [t for t, _ in buckets]
+    if not 1 <= len(ts) <= 3 or any(t not in (16, 32, 64) for t in ts):
+        raise ValueError(f"scan_into: buckets {ts}, the kernel takes 1-3 "
+                         f"of 16, 32, 64")
+    want = {"frame": (frame, torch.int32), "table": (table, torch.int32)}
+    for t in ts:
+        want[f"rows {t}"] = (packed[t], torch.int32)
+        want[f"palettes {t}"] = (pal_tensors[t], torch.int32)
+    for name, (x, dt) in want.items():
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"scan_into: {name} must be contiguous {dt} "
+                             f"on {dev}, got {x.dtype} on {x.device}")
+    if res_flat.device != dev or res_flat.dtype not in (torch.int16,
+                                                        torch.int32) \
+            or not res_flat.is_contiguous():
+        raise ValueError(f"scan_into: residuals must be contiguous int16 "
+                         f"or int32 on {dev}")
+    if any(packed[t].ndim != 2 or packed[t].shape[1] != len(_DEV_FIELDS)
+           for t in ts) or tuple(table.shape) != (len(lanes), len(ts), 2):
+        raise ValueError("scan_into: lane rows must be [N, "
+                         f"{len(_DEV_FIELDS)}] and the level table "
+                         f"[{len(lanes)}, {len(ts)}, 2]")
+    ends = table_np[:, :, 0].astype(np.int64) + table_np[:, :, 1]
+    if len(lanes) and ((table_np < 0).any() or any(
+            ends[:, bi].max() > packed[t].shape[0]
+            for bi, t in enumerate(ts))):
+        raise ValueError("scan_into: the level table names lanes beyond "
+                         "the lane rows")
+    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
+    lib = load_kernel("wavefront_scan")
+    c = _consts(dev)
+    params = dict(
+        frame=frame.data_ptr(), res=res_flat.data_ptr(),
+        levels=table.data_ptr(), kern=c["kern"].data_ptr(),
+        sm=c["sm"].data_ptr(), fi_taps=c["fi_taps"].data_ptr(),
+        n=frame.shape[0] - 1, res_len=res_flat.shape[0],
+        res_bytes=res_flat.element_size(), sm_len=_SM.shape[0], nb=len(ts),
+        bd=bd, sub_x=sub_x, sub_y=sub_y, eef=int(bool(eef)))
+    for k, t in enumerate(ts):
+        params.update({f"rows{k}": packed[t].data_ptr(),
+                       f"pal{k}": pal_tensors[t].data_ptr(), f"t{k}": t})
+    # a bucket the batch does not have is 0 throughout
+    arr = np.asarray([params.get(k, 0) for k in _PARAMS], np.int64)
+    todo = [(lvl, int(lanes[lvl])) for lvl in np.nonzero(lanes)[0].tolist()]
+    with torch.cuda.device(dev), _no_device_sync(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lvl, count in todo:
+            err = lib.wavefront_level(arr.ctypes.data, lvl, count, stream)
+            if err != 0:
+                raise RuntimeError(f"wavefront_scan launch failed at level "
+                                   f"{lvl}: CUDA error {err}")
+            launches += 1
 
 
 @contextlib.contextmanager

@@ -28,7 +28,8 @@ its rule: NCCL when every rank has a card) and runs, in order:
   the card to itself);
 - `--frames`: `decode_frames_sharded` of STREAM's first FRAMES_DATA
   coded frames over a mesh with data = FRAMES_DATA, as display MD5s per
-  frame.
+  frame, with the index of the frame this rank scanned and the scan
+  kernel's launches for it.
 Writes DIR/rank<R>.json.  `launch` starts N such processes and collects
 their results.
 """
@@ -214,6 +215,7 @@ def _frames_run(args, dev, res):
     from av1dec_tpu_torch.api import display_md5
     from av1dec_tpu_torch.bindings import NativeParser
     from av1dec_tpu_torch.container import read_temporal_units
+    from av1dec_tpu_torch.ops.kernels import wavefront
     from av1dec_tpu_torch.parallel.mesh import make_mesh
     from av1dec_tpu_torch.parallel.sharded_frames import \
         decode_frames_sharded
@@ -230,8 +232,12 @@ def _frames_run(args, dev, res):
     parser.close()
     mesh = make_mesh(data=K)
     t0 = time.perf_counter()
+    scans0 = wavefront.launches
     frames = decode_frames_sharded(drs, mesh, device=dev)
     res["frames_s"] = time.perf_counter() - t0
+    # this rank scanned frame `frame_index`: its scan kernel launches
+    res["frame_index"] = mesh.index("data")
+    res["scan_launches"] = wavefront.launches - scans0
     res["frames"] = [
         display_md5(planes, dr.sch.bd, dr.hdr["upscaled_width"],
                     dr.hdr["frame_height"],

@@ -42,6 +42,7 @@ from av1dec_tpu_torch.ops.kernels.deblock import deblock_planes
 from av1dec_tpu_torch.ops.kernels.lr import lr_wiener_planes
 from av1dec_tpu_torch.ops.kernels.mc import mc_into
 from av1dec_tpu_torch.ops.kernels.wavefront import (_DEV_FIELDS,
+                                                    plan_levels,
                                                     plan_windows, scan_into)
 from av1dec_tpu_torch.ops.spec import itx
 from av1dec_tpu_torch.pipeline import device_inter as di
@@ -560,16 +561,20 @@ def prep_batch(drs):
 def to_torch_inputs(prep, device):
     """Upload a `prep_batch` dict (this package's or the JAX package's:
     the keys and layouts are the same; "mc" entries may hold either
-    package's InterPlan lanes) to `device`, and plan the scan's windows
-    and their host flags.  Reference pieces already on `device` are not
-    copied.  Returns the dict `dispatch_batch` and `scan_batch`
-    take."""
+    package's InterPlan lanes) to `device`, and plan the scan: the
+    plain version's windows and their host flags, and the kernel's
+    per-level lane ranges (uploaded once; the lanes of each level stay
+    on the host, so the launch loop reads no device value).  Reference
+    pieces already on `device` are not copied.  Returns the dict
+    `dispatch_batch` and `scan_batch` take."""
     dev = torch.device(device)
     ts = [t for t, _ in prep["buckets"]]
     inputs = prep["inputs_np"]
     windows = plan_windows({t: inputs[t][0] for t in ts},
                            {t: inputs[t][1] for t in ts},
                            {t: inputs[t][2] for t in ts}, prep["buckets"])
+    table, level_lanes = plan_levels({t: inputs[t][1] for t in ts},
+                                     {t: inputs[t][2] for t in ts}, ts)
     bd = prep["config"][1]
     mc = []
     for f, lanes, pieces in prep.get("mc", ()):
@@ -581,6 +586,7 @@ def to_torch_inputs(prep, device):
         "pal": {t: _i32(a, dev) for t, a in prep["pal_np"].items()},
         "packed": {t: _i32(inputs[t][0], dev) for t in ts},
         "windows": windows,
+        "levels": (table, level_lanes, _i32(table, dev)),
         "config": tuple(prep["config"]),
         "dbl": prep["dbl"],
         "mc": mc,
@@ -598,7 +604,7 @@ def scan_batch(inputs):
     for ref_flat, lanes, cfg in inputs["mc"]:
         mc_into(frame, ref_flat, lanes, cfg)
     scan_into(frame, inputs["packed"], inputs["res"], inputs["pal"],
-              inputs["config"], inputs["windows"])
+              inputs["config"], inputs["windows"], inputs["levels"])
     return frame[:n]
 
 

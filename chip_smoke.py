@@ -23,6 +23,18 @@ Phases (each raises on failure, so the script exits non-zero):
    then the frame kernel's device time (torch.profiler: kernel time
    only, no host cost) and its wrapper-inclusive time at 1080p 4:2:0,
    beside the plain version's time and the bound for the same inputs;
+   - `wavefront_scan` (the scan kernel, one launch per wavefront level
+     with lanes) against `_scan_plain` on the same buffer after the MC
+     pass, byte-equal: the first 4-frame batch of the 1080p all-intra
+     stream, every small stream's first batch (up to 4 frames without
+     inter lanes) and first frame with MF_INTER lanes, as
+     `Decoder(device="cuda")` builds them (8 and 10 bits; 4:2:0, 4:4:4
+     and mono), and frame 1 of the 1080p low-delay stream (MF_INTER
+     lanes); then, on the 1080p batch and that inter frame, its device
+     time (its launches' kernel intervals), launches, wrapper-inclusive
+     time, the plain version's time and the bound (bytes, operations,
+     and the chain term: levels x the measured time of one empty launch
+     in a back-to-back chain);
    and B7, the
    device residuals (`ops/kernels/itx.residual_bucket`, plain torch),
    byte-equal on the card to its CPU run and to the NumPy spec model on
@@ -113,10 +125,16 @@ Phases (each raises on failure, so the script exits non-zero):
       card: the fewer-devices warning and `cdef_frame`), against the
       manifest.
 
+Every decode of phases 3-8 holds the scan kernel's launches equal to
+the levels with lanes of the scans it ran (`ScanLevels`; in 7b each GOP
+worker frame's `Decoder.stats` `scan_launches`, in 7d each rank's, against
+the levels of the frame it scanned): every scan ran on the kernel.
 The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
 8a-c and 8e for `cdef_frame` (36), and phase 7's checked calls (counted
 in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
-(2 + 4 + 2) for `cdef_filter` (17).  `cdef_frame`'s times there are
+(2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` every
+checked scan of phases 3-8 in this process (3, 4, 5 and 7a, 6, 8a-c,
+8e; its times are phase 2's on the 1080p batch).  `cdef_frame`'s times there are
 phase 2's (1080p 4:2:0, random all-tap strengths); `cdef_filter`'s are
 those of its `Decoder`-path launch, shard 0 of 2 in 8d (luma pad
 1084x964, chroma pads 544x484), and its max_abs_err is phase 8's
@@ -174,6 +192,20 @@ DIR_OPS_PER_UNIT = 64 * 2 + 8 * 30 + 16
 DIR_INT8_OPS_PER_UNIT = 8 * 64 * 2
 # H100 SXM data sheet: dense int8 tensor-core rate
 INT8_OPS_PER_S = 1.979e15
+# int32 operations of the wavefront scan per written pixel: the residual
+# add and the clip (every lane), and by mode family its prediction:
+# Paeth (3 add/sub, 3 abs, 3 sub, 2 compares, 2 selects), smooth (4
+# multiplies, 4 add/sub, rounding add and shift; 2 + 3 one-sided),
+# directional (position multiply, 2 shifts, add, 2 LUT reads, 2
+# multiplies, add, rounding, compare), filter-intra (7 multiply-adds,
+# rounding and clip), CfL on DC (4 luma reads, 3 adds, shift, subtract,
+# multiply, rounding add and shift, add, clip); DC, V, H, palette and
+# MF_INTER lanes predict with no operation a pixel
+SCAN_OPS_PER_PX = 3
+SCAN_FAMILY_OPS = {7: 13, 4: 10, 5: 5, 6: 5, 3: 12, 9: 18}
+SCAN_CFL_OPS_PER_PX = 14
+# chain term: empty kernels launched back to back to time one link
+CHAIN_LAUNCHES = 2000
 # (subx, suby) of each chroma format; None is mono
 FORMATS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "mono": None}
 GATES = ("mixed", "zero", "pri_only", "sec_only", "all_taps")
@@ -487,6 +519,304 @@ def check_shards(cdef, planes, gates, bd, damping, subx, suby, n, what,
     return n
 
 
+def scan_work(inputs):
+    """(bytes, int32 operations, lanes, written pixels) that the scan of
+    one batch (`to_torch_inputs`' dict) needs with these lanes: the lane
+    rows read once; each lane's residual (if it has one), palette map
+    (palette lanes) or MC prediction (MF_INTER lanes) read once, its
+    pixels written once; the edge pixels its family reads (w + h + 1,
+    directional 2 (w + h) + 1) and CfL's co-located luma; the
+    operations of SCAN_OPS_PER_PX, SCAN_FAMILY_OPS and
+    SCAN_CFL_OPS_PER_PX a pixel, DC's edge sums and the directional
+    edge filter and upsampling (12 a pixel of both edges)."""
+    from av1dec_tpu_torch.ops.kernels.wavefront import _F
+    sub = 1 << (inputs["config"][2] + inputs["config"][3])
+    res_elem = inputs["res"].element_size()
+    nbytes = ops = lanes = px = 0
+    for rows in inputs["packed"].values():
+        r = rows.cpu().numpy().astype(np.int64)
+        w, h, mf = r[:, _F["w"]], r[:, _F["h"]], r[:, _F["mode_family"]]
+        wh = w * h
+        cfl = (mf == 0) & (r[:, _F["cfl_maxx"]] > 0)
+        intra = (mf != 8) & (mf != 10)
+        edge = np.where(mf == 3, 2 * (w + h), w + h) + 1
+        nbytes += 4 * (r.size + wh.sum() + (wh * (mf == 8)).sum() +
+                       (wh * (mf == 10)).sum() + (edge * intra).sum() +
+                       sub * (wh * cfl).sum())
+        nbytes += res_elem * (wh * (r[:, _F["res_idx"]] >= 0)).sum()
+        fam = np.zeros_like(mf)
+        for m, k in SCAN_FAMILY_OPS.items():
+            fam[mf == m] = k
+        ops += ((SCAN_OPS_PER_PX + fam + SCAN_CFL_OPS_PER_PX * cfl) *
+                wh).sum()
+        ops += ((w + h) * (mf == 0)).sum() + (24 * (w + h) * (mf == 3)).sum()
+        lanes += len(r)
+        px += wh.sum()
+    return int(nbytes), int(ops), int(lanes), int(px)
+
+
+def scan_levels(inputs):
+    """Levels with lanes of a batch: the scan kernel's launches."""
+    return int((inputs["levels"][1] > 0).sum())
+
+
+def mc_frame(inputs):
+    """A batch's scan buffer after its MC pass, as `scan_batch` makes
+    it."""
+    from av1dec_tpu_torch.pipeline.device_recon import mc_into
+    frame = torch.zeros(inputs["n"] + 1, dtype=torch.int32,
+                        device=inputs["device"])
+    for ref_flat, lanes, cfg in inputs["mc"]:
+        mc_into(frame, ref_flat, lanes, cfg)
+    return frame
+
+
+def scan_args(inputs):
+    return (inputs["packed"], inputs["res"], inputs["pal"],
+            inputs["config"])
+
+
+def check_scan(inputs, what):
+    """The batch's scan on the card, `scan_into` (the kernel, one launch
+    per level with lanes), held byte-equal to the plain `_scan_plain` on
+    the same buffer after the MC pass; returns its launches."""
+    from av1dec_tpu_torch.ops.kernels import wavefront as wf
+    base = mc_frame(inputs)
+    got, ref = base.clone(), base.clone()
+    before = wf.launches
+    wf.scan_into(got, *scan_args(inputs), inputs["windows"],
+                 inputs["levels"])
+    launched = wf.launches - before
+    wf._scan_plain(ref, *scan_args(inputs), inputs["windows"])
+    torch.cuda.synchronize()
+    err = int((got[:-1] - ref[:-1]).abs().max())
+    if err or launched != scan_levels(inputs):
+        raise AssertionError(f"wavefront_scan != plain at {what}: max abs "
+                             f"err {err}, {launched} launches for "
+                             f"{scan_levels(inputs)} levels with lanes")
+    return launched
+
+
+def chain_link_ms():
+    """Mean ms of one empty kernel launched back to back with others
+    (`wavefront_empty_launches`, CHAIN_LAUNCHES of them): what one link
+    of the scan's chain of dependent launches costs at least."""
+    import ctypes
+
+    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
+    fn = load_kernel("wavefront_scan").wavefront_empty_launches
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = fn(CHAIN_LAUNCHES, stream)
+        b.record()
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"empty launches failed: CUDA error {err}")
+        best = min(best, a.elapsed_time(b) / CHAIN_LAUNCHES)
+    return best
+
+
+def time_scan(inputs, int_rate, link_ms, what, iters=20):
+    """The scan kernel's device ms (its launches' kernel intervals, no
+    host cost), its wrapper-inclusive ms (CUDA events around `scan_into`
+    calls), the plain version's ms on the same inputs, and the bound
+    (bytes and operations, and the chain term: levels x `link_ms`);
+    logged and returned as a dict."""
+    from av1dec_tpu_torch.ops.kernels import wavefront as wf
+    frame = mc_frame(inputs)
+    levels = scan_levels(inputs)
+
+    def run():
+        wf.scan_into(frame, *scan_args(inputs), inputs["windows"],
+                     inputs["levels"])
+    ev = [e for e in _device_events(run, iters)
+          if "wavefront_level_kernel" in e.name]
+    if len(ev) != iters * levels:
+        raise RuntimeError(f"the profiler recorded {len(ev)} scan kernels "
+                           f"for {iters} scans of {levels} levels")
+    k = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    w = cuda_ms(run, iters)
+    plain = frame.clone()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    wf._scan_plain(plain, *scan_args(inputs), inputs["windows"])
+    b.record()
+    torch.cuda.synchronize()
+    p = a.elapsed_time(b)
+    nbytes, ops, lanes, px = scan_work(inputs)
+    terms = bound_terms(int_rate, nbytes, ops)
+    out = {"what": what, "levels": levels, "lanes": lanes, "pixels": px,
+           "device_ms": k, "ms_per_launch": k / levels, "wrapper_ms": w,
+           "plain_ms": p, **terms, "chain_ms": levels * link_ms,
+           "link_ms": link_ms, "share_of_bound": terms["bound_ms"] / k,
+           "card": card_line()}
+    log(json.dumps({"scan_kernel": out}))
+    return out
+
+
+def phase_scan(manifest, dev, int_rate):
+    """2 (scan): the scan kernel against its plain version on the card,
+    byte-equal, on the first 4-frame batch of BIG, on every small
+    stream's first batch (up to 4 frames without inter lanes) and first
+    frame with MF_INTER lanes (each as `Decoder(device="cuda")` gives
+    it), and on BIG_INTER's first inter frame; then its times on BIG's
+    batch and on that inter frame.  Returns BIG's times."""
+    from av1dec_tpu_torch import api
+    from av1dec_tpu_torch.bindings import NativeParser
+    from av1dec_tpu_torch.config import DecoderConfig
+    from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
+                                                        to_torch_inputs)
+    from av1dec_tpu_torch.pipeline.wavefront import MF_INTER
+
+    def inputs_of(drs):
+        return to_torch_inputs(prep_batch(drs), dev)
+
+    def has_inter_lanes(dr):
+        return any((bc.packed["mode_family"] == MF_INTER).any()
+                   for bc in dr.sch.classes.values())
+
+    def captured(name, tus):
+        kept = []
+        real = api.DeviceRecon
+
+        class Keep(real):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                kept.append(self)
+        api.DeviceRecon = Keep
+        try:
+            dec = api.Decoder(DecoderConfig(apply_grain=False), device=dev)
+            for tu in tus:
+                dec.decode(tu)
+            dec.close()
+        finally:
+            api.DeviceRecon = real
+        return [dr for dr in kept if dr.supported()]
+
+    parser = NativeParser()
+    big = []
+    for tu in read_tus(BIG)[:4]:
+        for hdr, plans in parser.parse_tu(tu, with_plans=True):
+            big.append(api.DeviceRecon(parser.seq, hdr, plans))
+    parser.close()
+    big_inputs = inputs_of(big)
+    launches = check_scan(big_inputs, f"{BIG} frames 0-3")
+    n = 1
+    seen = set()
+    for name in sorted(m for m in manifest if m not in BIGS):
+        drs = captured(name, read_tus(name))
+        intra = [dr for dr in drs if dr._inter_plan is None][:4]
+        inter = next((dr for dr in drs if has_inter_lanes(dr)), None)
+        for batch in ([intra] if intra else []) + \
+                ([[inter]] if inter else []):
+            launches += check_scan(inputs_of(batch), f"{name} frames "
+                                   f"{[drs.index(d) for d in batch]}")
+            n += 1
+            sch = batch[0].sch
+            fmt = "mono" if sch.num_planes == 1 else \
+                {(1, 1): "420", (1, 0): "422", (0, 0): "444"}[
+                    (sch.sub_x, sch.sub_y)]
+            seen.add((sch.bd, fmt, batch[0]._inter_plan is not None))
+    inter_dr = next(dr for dr in captured(BIG_INTER, read_tus(BIG_INTER)[:2])
+                    if has_inter_lanes(dr))
+    inter_inputs = inputs_of([inter_dr])
+    launches += check_scan(inter_inputs, f"{BIG_INTER} frame 1")
+    n += 1
+    bds = {b for b, _, _ in seen}
+    fmts = {f for _, f, _ in seen}
+    if not ({8, 10} <= bds and {"420", "444", "mono"} <= fmts and
+            any(i for _, _, i in seen)):
+        raise AssertionError(f"scan checks cover bit depths {bds}, formats "
+                             f"{fmts}, MF_INTER batches "
+                             f"{any(i for _, _, i in seen)}")
+    log(f"kernel wavefront_scan: byte-equal to the plain scan on {n} "
+        f"batches ({BIG} frames 0-3, {BIG_INTER} frame 1, every small "
+        f"stream's first batch and first frame with MF_INTER lanes; "
+        f"{sorted(bds)}-bit, {sorted(fmts)}); {launches} launches, one "
+        f"per level with lanes; max abs err 0")
+    link = chain_link_ms()
+    out = time_scan(big_inputs, int_rate, link, f"{BIG} frames 0-3")
+    time_scan(inter_inputs, int_rate, link, f"{BIG_INTER} frame 1")
+    out["max_abs_err"] = 0
+    return out
+
+
+# the levels each checked `ScanLevels` block scanned, in order: the scan
+# kernel's launches on the main paths
+MAIN_SCANS = []
+
+
+class ScanLevels:
+    """Inside `with`: counts the levels with lanes of every scan that
+    goes through `device_recon.scan_into` (from the lanes it is given),
+    and on leaving holds the scan kernel's launches (`wavefront.launches`,
+    set to 0 on entry) equal to them: every scan ran on the kernel."""
+
+    def __init__(self, what):
+        self.what = what
+        self.levels = self.scans = 0
+
+    def __enter__(self):
+        from av1dec_tpu_torch.ops.kernels import wavefront
+        from av1dec_tpu_torch.pipeline import device_recon
+        self.real = device_recon.scan_into
+
+        def counted(*args):
+            self.levels += int((args[6][1] > 0).sum())
+            self.scans += 1
+            return self.real(*args)
+        device_recon.scan_into = counted
+        wavefront.launches = 0
+        return self
+
+    def __exit__(self, kind, *_):
+        from av1dec_tpu_torch.ops.kernels import wavefront
+        from av1dec_tpu_torch.pipeline import device_recon
+        device_recon.scan_into = self.real
+        if kind is None:
+            if wavefront.launches != self.levels:
+                raise AssertionError(
+                    f"{self.what}: wavefront_scan launches "
+                    f"{wavefront.launches} != {self.levels} levels with "
+                    f"lanes in {self.scans} scans")
+            MAIN_SCANS.append(self.levels)
+        return False
+
+    def __str__(self):
+        return (f"wavefront_scan launches {self.levels} = levels with "
+                f"lanes of {self.scans} scans")
+
+
+def frame_levels(name, count):
+    """Levels with lanes of the scan of each of the first `count` coded
+    frames of an all-intra stream, each scanned alone (host prep)."""
+    from av1dec_tpu_torch.bindings import NativeParser
+    from av1dec_tpu_torch.ops.kernels.wavefront import plan_levels
+    from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
+                                                        prep_batch)
+    parser = NativeParser()
+    out = []
+    for tu in read_tus(name)[:count]:
+        for hdr, plans in parser.parse_tu(tu, with_plans=True):
+            prep = prep_batch([DeviceRecon(parser.seq, hdr, plans)])
+            ts = [t for t, _ in prep["buckets"]]
+            inp = prep["inputs_np"]
+            _, lanes = plan_levels({t: inp[t][1] for t in ts},
+                                   {t: inp[t][2] for t in ts}, ts)
+            out.append(int((lanes > 0).sum()))
+    parser.close()
+    return out
+
+
 def cdef_frames(datas):
     """Frames of the stream whose CDEF is on (host gating)."""
     from av1dec_tpu_torch.bindings import NativeParser
@@ -524,12 +854,15 @@ def phase_main_path(manifest, dev, int_rate):
 
     cdef.launches = cdef.frame_launches = 0
     t0 = time.perf_counter()
-    out = decode_stream_batched(datas, device=dev, batch=4)
+    with ScanLevels("main path") as scans:
+        out = decode_stream_batched(datas, device=dev, batch=4)
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
     check_launches(cdef, n_cdef, "main path")
     if launches == 0:
         raise AssertionError("main path: no frame with CDEF on")
+    if scans.levels == 0:
+        raise AssertionError("main path: no wavefront_scan launch")
     got = [display_md5(p, 8, 1920, 1080, (1, 1)) for p in out]
     bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
     if len(got) != len(want) or bad:
@@ -537,8 +870,9 @@ def phase_main_path(manifest, dev, int_rate):
                              f"{bad} of {len(want)}")
     log(f"main path: {len(got)}/{len(want)} frames of {BIG} match the "
         f"manifest; cdef_frame launches {launches} = {n_cdef} frames with "
-        f"CDEF on, cdef_filter launches 0; the scan ran under sync debug "
-        f"mode 'error' (no device->host sync); first pass {t_first:.3f} s")
+        f"CDEF on, cdef_filter launches 0; {scans}; the scan ran under "
+        f"sync debug mode 'error' (no device->host sync); first pass "
+        f"{t_first:.3f} s")
 
     t0 = time.perf_counter()
     decode_stream_batched(datas, device=dev, batch=4)
@@ -576,28 +910,30 @@ def phase_entry_point(manifest, dev):
     names = sorted(n for n in manifest if n not in BIGS)
     n_cdef = n_host = 0
     cdef.launches = cdef.frame_launches = 0
-    for name in names:
-        dec = Decoder(DecoderConfig(), device=dev)
-        got = []
-        datas = [tu for _, tu in read_ivf(os.path.join(TESTDATA,
-                                                       name + ".ivf"))]
-        for tu in datas:
-            got += [f.display_md5() for f in dec.decode(tu)]
-        dec.close()
-        n_cdef += cdef_frames(datas)
-        if got != manifest[name]["frames"]:
-            raise AssertionError(f"{name}: Decoder(device='cuda') frames "
-                                 f"differ from the manifest")
-        paths = [s["recon_path"] for s in dec.stats]
-        if paths != manifest[name].get("paths", ["device"] * len(paths)):
-            raise AssertionError(f"{name}: recon paths {paths} differ from "
-                                 f"the manifest's")
-        n_host += paths.count("host")
+    with ScanLevels("small streams") as scans:
+        for name in names:
+            dec = Decoder(DecoderConfig(), device=dev)
+            got = []
+            datas = [tu for _, tu in read_ivf(
+                os.path.join(TESTDATA, name + ".ivf"))]
+            for tu in datas:
+                got += [f.display_md5() for f in dec.decode(tu)]
+            dec.close()
+            n_cdef += cdef_frames(datas)
+            if got != manifest[name]["frames"]:
+                raise AssertionError(f"{name}: Decoder(device='cuda') "
+                                     f"frames differ from the manifest")
+            paths = [s["recon_path"] for s in dec.stats]
+            if paths != manifest[name].get("paths",
+                                           ["device"] * len(paths)):
+                raise AssertionError(f"{name}: recon paths {paths} differ "
+                                     f"from the manifest's")
+            n_host += paths.count("host")
     check_launches(cdef, n_cdef, "small streams")
     log(f"entry point: Decoder(device='cuda') matches the manifest (film "
         f"grain applied) on {len(names)} streams: {' '.join(names)}; "
         f"{n_host} frames on the host pixel path; cdef_frame launches "
-        f"{n_cdef} = frames with CDEF on, cdef_filter launches 0")
+        f"{n_cdef} = frames with CDEF on, cdef_filter launches 0; {scans}")
 
 
 def mc_work(ref_flat, lanes, cfg):
@@ -646,7 +982,8 @@ def phase_inter(manifest, dev, int_rate):
 
     cdef.launches = cdef.frame_launches = 0
     t0 = time.perf_counter()
-    got, stats = decode(save_at=CHECKPOINT_TU)
+    with ScanLevels("inter path") as scans:
+        got, stats = decode(save_at=CHECKPOINT_TU)
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
     check_launches(cdef, n_cdef, "inter path")
@@ -663,8 +1000,9 @@ def phase_inter(manifest, dev, int_rate):
         f"the manifest; {len(on_dev)}/{len(inter)} inter frames on the "
         f"device path (MC pass and scan under sync debug mode 'error'); "
         f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
-        f"cdef_filter launches 0; first pass {t_first:.3f} s")
-    phase_checkpoint(datas, want, saved, dev)
+        f"cdef_filter launches 0; {scans}; first pass {t_first:.3f} s")
+    with ScanLevels("checkpoint resume"):
+        phase_checkpoint(datas, want, saved, dev)
 
     t0 = time.perf_counter()
     _, stats = decode()
@@ -836,7 +1174,8 @@ def phase_host(manifest, dev):
     recon.residuals_device = keep
     t0 = time.perf_counter()
     try:
-        got, stats = decode()
+        with ScanLevels("host path") as scans:
+            got, stats = decode()
     finally:
         recon.residuals_device = real
     t_first = time.perf_counter() - t0
@@ -855,8 +1194,8 @@ def phase_host(manifest, dev):
     log(f"host path: {len(got)}/{len(want)} frames of {BIG_HOST} match the "
         f"manifest; {n_host}/{len(paths)} frames on the host pixel path "
         f"({'; '.join(reasons)}); cdef_frame launches {launches} = "
-        f"{n_cdef} frames with CDEF on, cdef_filter launches 0; first pass "
-        f"{t_first:.3f} s")
+        f"{n_cdef} frames with CDEF on, cdef_filter launches 0; {scans}; "
+        f"first pass {t_first:.3f} s")
 
     # the warm pass, with host clocks around FrameRecon's stages
     spent = dict.fromkeys(("residuals", "postfilter", "cdef"), 0.0)
@@ -968,6 +1307,13 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             raise AssertionError(f"GOP-parallel {BIG}: {len(got)} frames, "
                                  f"{len(stats)} GOPs, equal to the "
                                  f"manifest: {got == want[:GOP_TUS]}")
+        # each worker frame's scan ran on the kernel, one launch a level
+        levels = frame_levels(BIG, GOP_TUS)
+        scanned = [[r["scan_launches"] for r in st["frames"]]
+                   for st in stats]
+        if scanned != [[levels[st["gop"]]] for st in stats]:
+            raise AssertionError(f"GOP workers' wavefront_scan launches "
+                                 f"{scanned}, levels with lanes {levels}")
         per_worker = {}
         for st in stats:
             per_worker.setdefault(st["pid"], []).extend(
@@ -975,6 +1321,7 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
         log(json.dumps({"gop_parallel": {
             "stream": f"{BIG} TUs 0-{GOP_TUS - 1}", "gops": len(stats),
             "workers": 2, "fps": len(got) / dt, "seconds": dt,
+            "scan_launches": scanned,
             "worker_frame_ms": list(per_worker.values()),
             "card": card_line()}}))
 
@@ -999,9 +1346,14 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             if rec["all_reduce"] != SCALE_RANKS * (SCALE_RANKS - 1) // 2:
                 raise AssertionError(f"rank {rec['rank']}: all_reduce "
                                      f"{rec['all_reduce']}")
-            if rec["frames"] != want[:2]:
-                raise AssertionError(f"rank {rec['rank']}: sharded frames "
-                                     f"differ from the manifest")
+            if rec["frames"] != want[:2] or rec["scan_launches"] != \
+                    levels[rec["frame_index"]]:
+                raise AssertionError(
+                    f"rank {rec['rank']}: sharded frames equal to the "
+                    f"manifest {rec['frames'] == want[:2]}; frame "
+                    f"{rec['frame_index']}'s wavefront_scan launches "
+                    f"{rec['scan_launches']}, levels with lanes "
+                    f"{levels[rec['frame_index']]}")
             for n in N_SPACE:
                 c = rec["cdef"][str(n)]
                 if c["md5"] != whole or c["launches"] != 1 or \
@@ -1029,7 +1381,8 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             f"_cdef_core on the whole frame, 1 cdef_filter launch per "
             f"rank per call ({launches}), each byte-equal to "
             f"_cdef_shard_core on its bordered planes; sharded frames 0-1 "
-            f"at data=2 match the manifest on every rank (frames "
+            f"at data=2 match the manifest on every rank, each rank's scan "
+            f"one wavefront_scan launch a level (frames "
             f"{res[0]['frames_s']:.3f} s on rank 0); launch "
             f"{t_launch:.3f} s")
         log(json.dumps({"sharded_cdef": rows, "card": card_line()}))
@@ -1089,7 +1442,8 @@ def phase_compound(manifest, dev, int_rate):
     device_recon.mc_into = keep
     t0 = time.perf_counter()
     try:
-        got, stats = decode()
+        with ScanLevels("compound") as scans:
+            got, stats = decode()
     finally:
         device_recon.mc_into = real
     t_first = time.perf_counter() - t0
@@ -1110,7 +1464,7 @@ def phase_compound(manifest, dev, int_rate):
         f"the manifest, all on the device path; {sum(comp)} compound MC "
         f"lanes in {sum(c > 0 for c in comp)} of {len(seen)} MC passes; "
         f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
-        f"cdef_filter launches 0; first pass {t_first:.3f} s")
+        f"cdef_filter launches 0; {scans}; first pass {t_first:.3f} s")
 
     t0 = time.perf_counter()
     _, stats = decode()
@@ -1165,9 +1519,10 @@ def phase_wiener(manifest, dev):
     api.DeviceRecon = Keep
     t0 = time.perf_counter()
     try:
-        dec = api.Decoder(device=dev)
-        got = [f.display_md5() for f in dec.decode(datas[0])]
-        dec.close()
+        with ScanLevels("cq-40 key frame") as scans:
+            dec = api.Decoder(device=dev)
+            got = [f.display_md5() for f in dec.decode(datas[0])]
+            dec.close()
     finally:
         api.DeviceRecon = real
     dt = time.perf_counter() - t0
@@ -1182,7 +1537,7 @@ def phase_wiener(manifest, dev):
                              f"Wiener on the device {kept[0]._lr_on_device}")
     log(f"Wiener: {BIG_HOST40} key frame on the device path, LR (Wiener) "
         f"on the device, matches the manifest; cdef_frame launches "
-        f"{cdef.frame_launches}; {dt:.3f} s")
+        f"{cdef.frame_launches}; {scans}; {dt:.3f} s")
     return cdef.frame_launches
 
 
@@ -1200,7 +1555,8 @@ def phase_batched_host(manifest, dev):
     parser.close()
     cdef.launches = cdef.frame_launches = 0
     tm = {}
-    out = decode_stream_batched(datas, device=dev, batch=4, timings=tm)
+    with ScanLevels("batched host frame") as scans:
+        out = decode_stream_batched(datas, device=dev, batch=4, timings=tm)
     check_launches(cdef, cdef_frames(datas), "batched host frame")
     got = display_md5(out[0], seq["bit_depth"], hdr["upscaled_width"],
                       hdr["frame_height"],
@@ -1213,7 +1569,7 @@ def phase_batched_host(manifest, dev):
     log(f"batched entry point: {SCREEN} TU 0 (intra block copy) inline on "
         f"the host pixel path, matches the manifest; host path "
         f"{tm['host_path'] * 1e3:.3f} ms; cdef_frame launches "
-        f"{cdef.frame_launches}")
+        f"{cdef.frame_launches}; {scans}")
     return cdef.frame_launches
 
 
@@ -1273,7 +1629,8 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
         before = sharded_cdef.local_frames
         sharded_cdef.local_devices = lambda d: [dev, dev]
         try:
-            got = decode()
+            with ScanLevels("space_shards=2, the card twice"):
+                got = decode()
         finally:
             sharded_cdef.local_devices = real_devices
         if got != want or cdef.launches != 2 or cdef.frame_launches or \
@@ -1298,7 +1655,8 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
     logger.addHandler(handler)
     cdef.launches = cdef.frame_launches = 0
     try:
-        got = decode()
+        with ScanLevels("space_shards=2, one card"):
+            got = decode()
     finally:
         logger.removeHandler(handler)
     frame_launches = cdef.frame_launches
@@ -1365,6 +1723,7 @@ def main():
         manifest = json.load(f)
 
     frame = timed_phase("2 (kernels)", phase_kernels, dev, int_rate)
+    scan = timed_phase("2 (scan)", phase_scan, manifest, dev, int_rate)
     timed_phase("2 (B7)", phase_b7, dev)
     launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
                                    int_rate)
@@ -1393,11 +1752,17 @@ def main():
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None}
+    # the scan kernel's entry: its times on BIG's first batch (phase 2),
+    # its launches those of every checked scan of phases 3-8 in this
+    # process
+    scan["ms"] = scan["device_ms"]
     log(json.dumps({"kernels": [
         line("cdef_frame", "av1dec_tpu/ops/kernels/cdef.py:342", frame,
              launches),
         line("cdef_filter", "av1dec_tpu/ops/kernels/cdef.py:342", path,
              filter_launches),
+        line("wavefront_scan", "av1dec_tpu/ops/kernels/wavefront.py:343",
+             scan, sum(MAIN_SCANS)),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

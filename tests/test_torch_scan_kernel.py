@@ -1,0 +1,277 @@
+"""The wavefront scan kernel of av1dec_tpu_torch (`csrc/wavefront_scan.cu`,
+one launch per wavefront level) and what it rests on, on the CPU:
+
+- level-order independence, the precondition of one launch per level:
+  the plain scan run level by level, each lane a window of its own and
+  the lanes and buckets of each level in reverse order, gives the same
+  buffer as `scan_batch`
+  and as the JAX package's `run_wavefront` on the same prep inputs
+  (intra streams through the JAX package's prep, MF_INTER lanes through
+  the port's InterPlan and `mc_into`);
+- the per-level lane tables `to_torch_inputs` uploads cover every lane
+  exactly once, in level order, and agree with `make_windows`;
+- the field, mode-family and parameter constants of the CUDA source
+  equal `_DEV_FIELDS`, the `MF_*` codes and `_PARAMS`;
+- `scan_into` runs the plain version on a CPU buffer and refuses other
+  devices;
+
+and, marked `gpu` (skipped without a card), the kernel against the
+plain version on the card on every committed small stream.
+"""
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import decode_capture, parse, small_streams
+
+_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "av1dec_tpu_torch", "csrc", "wavefront_scan.cu")
+
+# (stream, frames per batch); lowdelay has MF_INTER lanes
+ORDER_CASES = [("base", 1), ("palette", 1), ("i444", 1), ("multi", 2),
+               ("lowdelay", 1), ("bd10", 1)]
+
+
+def _jax_prep(name, k):
+    from av1dec_tpu.pipeline.device_recon import DeviceRecon, prep_batch
+    frames = parse(name, "jax")[:k]
+    drs = [DeviceRecon(s, h, p) for s, h, p in frames]
+    assert all(dr.supported() for dr in drs)
+    return prep_batch(drs)
+
+
+def _port_inter_prep(name):
+    """The port's prep of the first frame of `name` with MF_INTER lanes
+    (DeviceRecon with its InterPlan, from the port's CPU decode)."""
+    from av1dec_tpu_torch.pipeline.device_recon import prep_batch
+    from av1dec_tpu_torch.pipeline.wavefront import MF_INTER
+    _, _, drs = decode_capture(name)
+    for dr in drs:
+        if dr.supported() and any((bc.packed["mode_family"] == MF_INTER)
+                                  .any() for bc in dr.sch.classes.values()):
+            return prep_batch([dr])
+    raise AssertionError(f"{name}: no frame with MF_INTER lanes")
+
+
+def _mc_frame(inputs):
+    """The batch's buffer after the MC pass (zeros for intra batches)."""
+    from av1dec_tpu_torch.pipeline.device_recon import mc_into
+    frame = torch.zeros(inputs["n"] + 1, dtype=torch.int32,
+                        device=inputs["device"])
+    for ref_flat, lanes, cfg in inputs["mc"]:
+        mc_into(frame, ref_flat, lanes, cfg)
+    return frame
+
+
+def _level_steps(inputs):
+    """[L] window steps of each level, as `make_windows` splits them."""
+    buckets = inputs["config"][0]
+    table = inputs["levels"][0]
+    caps = np.asarray([b for _, b in buckets], np.int64)
+    return (-(-table[:, :, 1].astype(np.int64) // caps)).max(axis=1)
+
+
+def _scan_reversed(inputs):
+    """The plain scan level by level, each level's lanes one window
+    each, in reverse order: buckets last to first, and each bucket's
+    lanes last to first."""
+    from av1dec_tpu_torch.ops.kernels.wavefront import (_scan_plain,
+                                                        window_flags)
+    buckets = inputs["config"][0]
+    ts = [t for t, _ in buckets]
+    table = inputs["levels"][0]
+    steps = [(bi, lane) for lvl in range(table.shape[0])
+             for bi in reversed(range(len(ts)))
+             for lane in reversed(range(table[lvl, bi, 0],
+                                        table[lvl, bi, 0] +
+                                        table[lvl, bi, 1]))]
+    ws = np.zeros((len(steps), len(ts)), np.int32)
+    wc = np.zeros_like(ws)
+    for k, (bi, lane) in enumerate(steps):
+        ws[k, bi], wc[k, bi] = lane, 1
+    flags = window_flags({t: inputs["packed"][t].numpy() for t in ts}, ws,
+                         wc, ts)
+    frame = _mc_frame(inputs)
+    _scan_plain(frame, inputs["packed"], inputs["res"], inputs["pal"],
+                inputs["config"], (ws, wc, flags))
+    return frame[:-1]
+
+
+def _jax_scan(prep, frame0, has_inter):
+    import jax.numpy as jnp
+    from av1dec_tpu.ops.kernels.wavefront import run_wavefront
+    # the JAX scan slices Bmax rows from each window's start: pad the
+    # port's exact lane arrays as the JAX prep's capacities do
+    bmax = dict(prep["buckets"])
+    inputs = {t: (jnp.asarray(np.concatenate(
+        [p, np.zeros((bmax[t], p.shape[1]), p.dtype)])), s, c)
+        for t, (p, s, c) in prep["inputs_np"].items()}
+    config = tuple(prep["config"]) + ((True,) if has_inter else ())
+    return np.asarray(run_wavefront(
+        jnp.asarray(frame0), inputs, jnp.asarray(prep["res_np"]),
+        {t: jnp.asarray(a) for t, a in prep["pal_np"].items()}, config))
+
+
+@pytest.mark.parametrize("name,k", ORDER_CASES,
+                         ids=[c[0] for c in ORDER_CASES])
+def test_level_order_independence(name, k, native_lib):
+    from av1dec_tpu_torch.ops.kernels import wavefront as W
+    from av1dec_tpu_torch.pipeline.device_recon import (scan_batch,
+                                                        to_torch_inputs)
+    inter = name == "lowdelay"
+    prep = _port_inter_prep(name) if inter else _jax_prep(name, k)
+    assert prep["K"] == k
+    inputs = to_torch_inputs(prep, "cpu")
+    before = W.launches
+    got = scan_batch(inputs)
+    assert W.launches == before  # a CPU buffer runs the plain version
+    rev = _scan_reversed(inputs)
+    assert torch.equal(got, rev)
+    frame0 = _mc_frame(inputs)[:-1].numpy()
+    if inter:
+        assert frame0.any()
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_scan(prep, frame0, inter))
+    # reversing reorders real work: some level has several lanes
+    assert (inputs["levels"][1] > 1).any()
+
+
+@pytest.mark.parametrize("name,k", [("base", 1), ("multi", 2),
+                                    ("lowdelay", 1), ("palette", 1)])
+def test_level_tables(name, k, native_lib):
+    from av1dec_tpu_torch.ops.kernels.wavefront import make_windows
+    from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
+                                                        to_torch_inputs)
+    if name == "lowdelay":
+        prep = _port_inter_prep(name)
+        drs = None
+    else:
+        from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+        drs = [DeviceRecon(s, h, p) for s, h, p in parse(name, "torch")[:k]]
+        prep = prep_batch(drs)
+    inputs = to_torch_inputs(prep, "cpu")
+    table, lanes, dev_table = inputs["levels"]
+    buckets = prep["buckets"]
+    ts = [t for t, _ in buckets]
+    L = max(len(prep["inputs_np"][t][1]) for t in ts)
+    assert table.shape == (L, len(ts), 2) and table.dtype == np.int32
+    assert dev_table.dtype == torch.int32 and \
+        np.array_equal(dev_table.numpy(), table)
+    np.testing.assert_array_equal(lanes, table[:, :, 1].sum(axis=1))
+    for bi, t in enumerate(ts):
+        n = prep["inputs_np"][t][0].shape[0]
+        runs = [np.arange(s, s + c) for s, c in table[:, bi]]
+        # every lane exactly once, in level order
+        np.testing.assert_array_equal(np.concatenate(runs), np.arange(n))
+    if drs is not None:
+        # each run holds exactly the lanes the schedule put at its level
+        for bi, t in enumerate(ts):
+            lv = np.sort(np.concatenate(
+                [dr._bucket_rows(t)[1] for dr in drs] + [[]]))
+            want = np.bincount(lv.astype(np.int64), minlength=L + 1)[1:]
+            np.testing.assert_array_equal(table[:, bi, 1], want)
+    # the same runs as the windows of make_windows, level by level
+    ws, wc = make_windows({t: table[:, bi, 0] for bi, t in enumerate(ts)},
+                          {t: table[:, bi, 1] for bi, t in enumerate(ts)},
+                          dict(buckets), ts)
+    np.testing.assert_array_equal(ws, inputs["windows"][0])
+    np.testing.assert_array_equal(wc, inputs["windows"][1])
+    steps = _level_steps(inputs)
+    ends = np.cumsum(steps)
+    for lvl in range(L):
+        sl = slice(ends[lvl] - steps[lvl], ends[lvl])
+        for bi in range(len(ts)):
+            s, c = table[lvl, bi]
+            assert wc[sl, bi].sum() == c
+            live = wc[sl, bi] > 0
+            if c:
+                assert ws[sl, bi][live][0] == s
+                np.testing.assert_array_equal(
+                    np.diff(ws[sl, bi][live]), wc[sl, bi][live][:-1])
+
+
+def _enum(src, name):
+    body = re.search(r"enum %s : int \{(.*?)\};" % name, src, re.S)
+    assert body, name
+    return {k: int(v) for k, v in
+            re.findall(r"(\w+) = (\d+)", body.group(1))}
+
+
+def test_cuda_constants_locked():
+    from av1dec_tpu_torch.ops.kernels import cuda_build
+    from av1dec_tpu_torch.ops.kernels.wavefront import _DEV_FIELDS, _PARAMS
+    from av1dec_tpu_torch.pipeline import device_recon
+    from av1dec_tpu_torch.pipeline import wavefront as wf
+    with open(_CU) as f:
+        src = f.read()
+    fields = _enum(src, "Field")
+    assert fields.pop("kFields") == len(_DEV_FIELDS)
+    assert fields == {"F_" + n.upper(): i for i, n in enumerate(_DEV_FIELDS)}
+    mfs = {k: v for k, v in vars(wf).items() if k.startswith("MF_")}
+    assert _enum(src, "ModeFamily") == mfs and len(mfs) == 11
+    params = _enum(src, "Param")
+    assert params.pop("kParams") == len(_PARAMS)
+    assert params == {"P_" + n.upper(): i for i, n in enumerate(_PARAMS)}
+    assert int(re.search(r"kMaxT = (\d+);", src).group(1)) == \
+        max(device_recon.BUCKETS)
+    assert int(re.search(r"kMaxBuckets = (\d+);", src).group(1)) >= \
+        len(device_recon.BUCKETS)
+    # the C signature the ctypes binding declares
+    fn, argtypes = cuda_build.KERNELS["wavefront_scan"]
+    sig = re.search(r'extern "C" int %s\((.*?)\)' % fn, src, re.S).group(1)
+    assert len(sig.split(",")) == len(argtypes) == 4
+
+
+def test_scan_into_devices(native_lib):
+    from av1dec_tpu_torch.ops.kernels import wavefront as W
+    from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
+                                                        to_torch_inputs)
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    drs = [DeviceRecon(s, h, p) for s, h, p in parse("base", "torch")]
+    inputs = to_torch_inputs(prep_batch(drs), "cpu")
+    args = (inputs["packed"], inputs["res"], inputs["pal"],
+            inputs["config"], inputs["windows"], inputs["levels"])
+    frame = torch.zeros(inputs["n"] + 1, dtype=torch.int32)
+    before = W.launches
+    W.scan_into(frame, *args)
+    assert W.launches == before and frame[:-1].any()
+    plain = torch.zeros_like(frame)
+    W._scan_plain(plain, *args[:-1])
+    assert torch.equal(frame, plain)
+    with pytest.raises(ValueError, match="unsupported device"):
+        W.scan_into(torch.zeros(8, dtype=torch.int32, device="meta"),
+                    *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", small_streams())
+def test_cuda_kernel_matches_plain(name):
+    """The kernel (`scan_into` on the card, one launch per level with
+    lanes) == the plain scan on the card, byte for byte, on every frame
+    of the stream that the device path takes (with its MC pass), and on
+    its first up to 4 intra frames as one batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(run with `pytest -m gpu` on the card)")
+    from av1dec_tpu_torch.ops.kernels import wavefront as W
+    from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
+                                                        to_torch_inputs)
+    _, _, drs = decode_capture(name)
+    drs = [dr for dr in drs if dr.supported()]
+    intra = [dr for dr in drs if dr._inter_plan is None][:4]
+    batches = [[dr] for dr in drs] + ([intra] if len(intra) > 1 else [])
+    for batch in batches:
+        inputs = to_torch_inputs(prep_batch(batch), "cuda")
+        frame = _mc_frame(inputs)
+        plain = frame.clone()
+        args = (inputs["packed"], inputs["res"], inputs["pal"],
+                inputs["config"])
+        before = W.launches
+        W.scan_into(frame, *args, inputs["windows"], inputs["levels"])
+        assert W.launches - before == int((inputs["levels"][1] > 0).sum())
+        W._scan_plain(plain, *args, inputs["windows"])
+        torch.cuda.synchronize()
+        assert torch.equal(frame[:-1], plain[:-1]), name

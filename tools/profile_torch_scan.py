@@ -1,10 +1,14 @@
 """Where the device time of av1dec_tpu_torch's main path goes, on one card.
 
-    python3 tools/profile_torch_scan.py [--frames 4] [--stages scan,postfilter]
+    python3 tools/profile_torch_scan.py [--frames 4] \
+        [--stages scan,scan_plain,postfilter]
 
 Decodes the first batch (`--frames`) of the committed 1080p all-intra
-stream as `decode_stream_batched` does, then, for the wavefront scan and
-for the postfilter of that batch:
+stream as `decode_stream_batched` does, then, for each stage of that
+batch: `scan`, the wavefront scan as the decode runs it (the kernel
+`csrc/wavefront_scan.cu`, one launch per level); `scan_plain`, its plain
+version (`_scan_plain`, the eager window loop) on the same inputs; and
+`postfilter`:
 
 - the host wall time of the stage, ended by `torch.cuda.synchronize()`,
   without the profiler (best of three);
@@ -13,8 +17,8 @@ for the postfilter of that batch:
   busy share of the unprofiled wall time; the five kernels with the most
   device time.
 
-Prints one JSON object per stage named in `--stages` (both by default)
-and the card's name and power limit.
+Prints one JSON object per stage named in `--stages` (`scan` and
+`postfilter` by default) and the card's name and power limit.
 Needs a CUDA card; exits non-zero without one.
 """
 import json
@@ -90,6 +94,7 @@ def main():
         return 1
     from av1dec_tpu_torch.bindings import NativeParser
     from av1dec_tpu_torch.container import read_ivf
+    from av1dec_tpu_torch.ops.kernels.wavefront import _scan_plain
     from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
                                                         postfilter_batch,
                                                         prep_batch,
@@ -109,10 +114,16 @@ def main():
     inputs = to_torch_inputs(prep_batch(drs), "cuda")
     ws, wc, _ = inputs["windows"]
     extra = {"frames": len(drs), "windows": int(ws.shape[0]),
-             "window_buckets": int((wc > 0).sum())}
+             "window_buckets": int((wc > 0).sum()),
+             "levels": int((inputs["levels"][1] > 0).sum())}
     frame = scan_batch(inputs)
     if "scan" in stages:
         _profile("scan", lambda: scan_batch(inputs), extra)
+    if "scan_plain" in stages:
+        plain = frame.clone()
+        _profile("scan_plain", lambda: _scan_plain(
+            plain, inputs["packed"], inputs["res"], inputs["pal"],
+            inputs["config"], inputs["windows"]), extra)
     if "postfilter" in stages:
         _profile("postfilter", lambda: postfilter_batch(drs, inputs, frame),
                  {"frames": len(drs)})
