@@ -7,10 +7,11 @@ plan tensors), the container readers, the NumPy spec model
 (`ops/spec/`), the wavefront schedule builder (`pipeline/wavefront.py`)
 and the block walk of the host pixel path (`pipeline/recon.py`,
 `pipeline/inter_pred.py`).  The device half is PyTorch (`ops/kernels/`,
-`pipeline/device_recon.py`), with CDEF as hand-written CUDA kernels:
-`csrc/cdef_frame.cu`, one launch per frame on both paths, and
-`csrc/cdef_filter.cu`, one launch per column shard of the sharded CDEF
-(both from `csrc/cdef_common.cuh`).
+`pipeline/device_recon.py`), with CDEF and the wavefront scan as
+hand-written CUDA kernels: `csrc/cdef_frame.cu`, one launch per frame on
+both paths, `csrc/cdef_filter.cu`, one launch per column shard of the
+sharded CDEF (both from `csrc/cdef_common.cuh`), and
+`csrc/wavefront_scan.cu`, one persistent launch per batch's scan.
 
 The JAX package stays the reference: every part of this package gives
 the same integers as its `av1dec_tpu` counterpart on the same inputs

@@ -197,8 +197,11 @@ class Decoder:
                 "ms": round((time.monotonic() - t0) * 1000, 2),
                 "inter_plan_ms": round(dr.inter_plan_s * 1000, 2),
                 # launches of the scan kernel (a card's device path: one
-                # per wavefront level with lanes)
+                # per frame) and the levels with lanes its counters
+                # report complete
                 "scan_launches": _wavefront.launches - scans0,
+                "scan_levels": (_wavefront.levels_completed()
+                                if _wavefront.launches > scans0 else 0),
             })
             slot = _Slot(planes=planes,
                          width=hdr["upscaled_width"],

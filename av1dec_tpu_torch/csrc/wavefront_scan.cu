@@ -1,5 +1,5 @@
-// One wavefront level of the intra reconstruction scan [SPEC §7.11.2],
-// hand-written for Hopper (sm_90a).
+// The wavefront intra reconstruction scan of one batch [SPEC §7.11.2],
+// hand-written for Hopper (sm_90a): one persistent launch for every level.
 //
 // Replaces, on the CUDA path of av1dec_tpu_torch, the XLA-compiled window
 // scan of the JAX package: av1dec_tpu/ops/kernels/wavefront.py:343
@@ -9,26 +9,62 @@
 //
 // What bounds it: the chain of levels.  A level holds tens of lanes (one
 // transform block each); every lane's prediction reads pixels written at
-// strictly earlier levels (pipeline/wavefront.py), so the lanes of one
-// level, across all shape buckets, are independent, and one launch runs
-// them all.  The bytes (lane rows, residuals, palettes, the frame written
-// once) and the integer operations are far below what a few hundred
-// dependent launches cost; the launch chain sets the time.
+// strictly earlier levels (pipeline/wavefront.py), so a 4-frame 1080p
+// batch is a chain of a few hundred dependent steps.  Its bytes (lane
+// rows, residuals, palettes, the frame written once) and integer
+// operations take tens of microseconds; each link of the chain costs at
+// least one round trip through L2: a lane sees its previous level's
+// counter, gathers its edges, computes, writes and publishes.
+// wavefront_scan_floor runs that protocol over the same tickets with no
+// pixel work: its time is the chain term of this design.
 //
-// Design: one thread block per lane.  The block gathers the lane's
-// above/left edges and corner into shared memory with the clamps of
-// _gather_edges, computes only its own mode family (the plain version
-// computes every cheap family and selects), adds the residual, clips and
-// writes its w x h pixels; nothing else of the frame is written.
-// Filter-intra runs its 4x2 patches in anti-diagonal order in a shared
-// (w+1) x (h+1) buffer (a patch reads only its left, above and above-left
-// patches, so the patches of one diagonal are independent).  Every index
-// is clamped as the plain version clamps it, so the kept pixels read the
-// same values.  A left shift of a value that may be negative is written as
-// a multiply (undefined in C++17); >> on signed ints is arithmetic.
+// Design: one launch of min(lanes, SMs x resident blocks) blocks of
+// kThreads threads.  The host orders every lane of the batch once, level
+// by level (levels with lanes only, buckets in order inside a level): the
+// ticket table (plan_levels).  A block takes its next ticket from a global
+// counter (atomicAdd), loads all that does not depend on the frame (the
+// lane row, its residual, a palette lane's whole prediction) into shared
+// memory, and only then waits: thread 0 polls done[level - 1] (an acquire
+// load at device scope, __nanosleep back-off) until it holds the lane
+// count of the previous level with lanes.  The block computes the lane,
+// writes its pixels, syncs, and thread 0 publishes with __threadfence and
+// a release add to done[level]; the block takes its next ticket.  While
+// level l runs, the blocks holding later tickets have their inputs in
+// shared memory.  The counters (the ticket counter, then done[] of each
+// level with lanes, kCounterStride ints apart so that pollers of
+// different levels meet on different L2 lines) are zeroed by the wrapper
+// for each launch; the kernel allocates nothing.
+//
+// Why it cannot deadlock: a lane waits only on lanes of smaller tickets.
+// Tickets are taken in order, only by blocks that are running, and a
+// block keeps its ticket until it has published it.  So the smallest
+// unpublished ticket waits on nothing unpublished and its block is
+// running: the scan always advances, whatever blocks are resident, and no
+// cooperative launch is needed (blocks that start after the last ticket
+// was taken exit at once).  A wait longer than kWaitLimitNs of
+// %globaltimer traps, so a wrong ticket table ends in a CUDA error at the
+// next synchronisation, not in a hung card.
+//
+// Memory order: every read of the frame (edges, corner, CfL's luma, an
+// MF_INTER lane's MC prediction) goes through __ldcg, L2 only: L1 is not
+// coherent across SMs, and a block may hold lines from an earlier lane.
+//
+// Per lane: the block gathers the lane's above/left edges and corner into
+// shared memory with the clamps of _gather_edges, computes only its own
+// mode family (the plain version computes every cheap family and selects),
+// adds the residual, clips and writes its w x h pixels; nothing else of
+// the frame is written.  Filter-intra runs its 4x2 patches in
+// anti-diagonal order in a shared (w+1) x (h+1) buffer (a patch reads only
+// its left, above and above-left patches, so the patches of one diagonal
+// are independent).  Every index is clamped as the plain version clamps
+// it, so the kept pixels read the same values.  A left shift of a value
+// that may be negative is written as a multiply (undefined in C++17); >>
+// on signed ints is arithmetic.
 
 #include <cuda_runtime.h>
+#include <cuda/atomic>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -88,6 +124,18 @@ enum ModeFamily : int {
   MF_INTER = 10
 };
 
+// Columns of the ticket table (plan_levels, _TICKET in
+// ops/kernels/wavefront.py): a lane's bucket and row, its level's index
+// among the levels with lanes, and the lane count of the level before it
+// that done[level - 1] must reach (0 at the first level).
+enum Ticket : int {
+  K_BUCKET = 0,
+  K_ROW = 1,
+  K_LEVEL = 2,
+  K_WAIT = 3,
+  kTicketFields = 4
+};
+
 // The wrapper's int64 parameter array, in _PARAMS order
 // (ops/kernels/wavefront.py): pointers, then ints.
 enum Param : int {
@@ -99,23 +147,24 @@ enum Param : int {
   P_PAL0 = 5,
   P_PAL1 = 6,
   P_PAL2 = 7,
-  P_LEVELS = 8,
-  P_KERN = 9,
-  P_SM = 10,
-  P_FI_TAPS = 11,
-  P_N = 12,
-  P_RES_LEN = 13,
-  P_RES_BYTES = 14,
-  P_SM_LEN = 15,
-  P_NB = 16,
-  P_T0 = 17,
-  P_T1 = 18,
-  P_T2 = 19,
-  P_BD = 20,
-  P_SUB_X = 21,
-  P_SUB_Y = 22,
-  P_EEF = 23,
-  kParams = 24
+  P_TICKETS = 8,
+  P_COUNTERS = 9,
+  P_KERN = 10,
+  P_SM = 11,
+  P_FI_TAPS = 12,
+  P_N = 13,
+  P_RES_LEN = 14,
+  P_RES_BYTES = 15,
+  P_SM_LEN = 16,
+  P_NB = 17,
+  P_T0 = 18,
+  P_T1 = 19,
+  P_T2 = 20,
+  P_BD = 21,
+  P_SUB_X = 22,
+  P_SUB_Y = 23,
+  P_EEF = 24,
+  kParams = 25
 };
 
 constexpr int kThreads = 256;
@@ -124,20 +173,48 @@ constexpr int kMaxT = 64;
 constexpr int kEdge = 2 * kMaxT + 1;  // corner + 2T edge pixels
 constexpr int kLut = 4 * kMaxT + 3;   // directional LUT, indices 0..4T+2
 constexpr int kFiBuf = 33 * 33;       // filter-intra blocks are <= 32x32
+constexpr int kKern = 4 * 5;          // edge filter kernels (_KERN)
+constexpr int kSmLen = 128;           // smooth weights (SM_WEIGHTS)
+constexpr int kFiTaps = 5 * 8 * 7;    // filter-intra taps (_FI_TAPS)
+// ints from one level's done counter to the next (128 bytes: an L2 line)
+constexpr int kCounterStride = 32;
+// a wait this long (ns of %globaltimer) means a wrong ticket table: trap
+constexpr unsigned long long kWaitLimitNs = 2000000000ull;
+constexpr unsigned kMaxBackoffNs = 256;  // polling interval cap
+constexpr int kMaxDevices = 64;
 
 struct ScanArgs {
   int32_t* frame;  // [n + 1]; slot n is the plain version's trash slot
   const void* res;
   const int32_t* rows[kMaxBuckets];  // [N_b, kFields]
   const int32_t* pal[kMaxBuckets];   // [P_b, T_b, T_b]
-  const int32_t* levels;             // [L, nb, 2]: (start, count)
-  const int32_t* kern;               // [4, 5]
-  const int32_t* sm;                 // [sm_len]
-  const int32_t* fi_taps;            // [5, 8, 7]
-  int n, res_len, sm_len, nb;
+  const int32_t* tickets;            // [tickets, kTicketFields]
+  int* counters;  // [(levels + 1) * kCounterStride]: ticket, done[]
+  const int32_t* kern;     // [4, 5]
+  const int32_t* sm;       // [sm_len]
+  const int32_t* fi_taps;  // [5, 8, 7]
+  int tickets_n, n, res_len, sm_len, nb;
   int ts[kMaxBuckets];
   int bd, sub_x, sub_y, eef;
 };
+
+// A block's shared memory: the tables (loaded once), the lane being run
+// and its scratch.
+struct Smem {
+  int kern[kKern], sm[kSmLen], fi_taps[kFiTaps];
+  int ticket[kTicketFields + 1];  // the ticket's index, then its columns
+  int row[kFields];
+  int pre[kMaxT * kMaxT];  // residual; a palette lane's final pixels
+  int above[kEdge], left[kEdge];
+  int filt[2][kEdge];
+  int lut[2][kLut];
+  int fibuf[kFiBuf];
+  int red[kThreads / 32 + 1];
+  int dc_sum[2];
+  int corner_v;
+};
+
+using DeviceAtomic = cuda::atomic_ref<int, cuda::thread_scope_device>;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -237,32 +314,60 @@ __device__ __forceinline__ int dir_px(const int* lutA, const int* lutL,
   return lutL[min(max_base_y + 2, lutmax)];
 }
 
-template <typename Res>
-__global__ void __launch_bounds__(kThreads)
-    wavefront_level_kernel(const ScanArgs a, int level) {
-  __shared__ int row[kFields];
-  __shared__ int above[kEdge], left[kEdge];
-  __shared__ int filt[2][kEdge];
-  __shared__ int lut[2][kLut];
-  __shared__ int fibuf[kFiBuf];
-  __shared__ int red[kThreads / 32 + 1];
-  __shared__ int dc_sum[2];
-  __shared__ int corner_v;
+// %globaltimer, in ns (the CPU rehearsal of tests/cuda_cpu_shim.h, which
+// compiles this file with g++, reads a host clock instead)
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+#ifdef CUDA_CPU_SHIM
+  return cuda_cpu_shim_ns();
+#else
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+#endif
+}
 
-  const int tid = threadIdx.x;
-  // this block's lane: buckets in order, each its run of the level
-  const int32_t* lv = a.levels + level * a.nb * 2;
-  int b = blockIdx.x, bucket = 0;
-  for (; bucket < a.nb - 1; ++bucket) {
-    const int c = lv[2 * bucket + 1];
-    if (b < c) break;
-    b -= c;
+// Thread 0 of the block: the next ticket into s.ticket (its index, then
+// its columns when it is one of the batch's).
+__device__ __forceinline__ void take_ticket(const ScanArgs& a, Smem& s) {
+  const int t = atomicAdd(a.counters, 1);
+  s.ticket[0] = t;
+  if (t < a.tickets_n)
+    for (int k = 0; k < kTicketFields; ++k)
+      s.ticket[1 + k] = a.tickets[(size_t)t * kTicketFields + k];
+}
+
+// Thread 0 of the block: wait until done[level - 1] holds `want` (acquire
+// at device scope); trap after kWaitLimitNs.
+__device__ __forceinline__ void wait_level(const ScanArgs& a, int level,
+                                           int want) {
+  if (level == 0) return;
+  DeviceAtomic done(a.counters[level * kCounterStride]);
+  if (done.load(cuda::std::memory_order_acquire) >= want) return;
+  const unsigned long long t0 = globaltimer_ns();
+  unsigned ns = 32;
+  while (done.load(cuda::std::memory_order_acquire) < want) {
+    __nanosleep(ns);
+    ns = min(2 * ns, kMaxBackoffNs);
+    if (globaltimer_ns() - t0 > kWaitLimitNs) __trap();
   }
-  const int T = a.ts[bucket];
-  const int32_t* src = a.rows[bucket] + (size_t)(lv[2 * bucket] + b) * kFields;
-  if (tid < kFields) row[tid] = src[tid];
-  __syncthreads();
+}
 
+// Thread 0 of the block, after a __syncthreads that follows the lane's
+// writes: make them visible at device scope, then count the lane done.
+__device__ __forceinline__ void publish(const ScanArgs& a, int level) {
+  __threadfence();
+  DeviceAtomic(a.counters[(level + 1) * kCounterStride])
+      .fetch_add(1, cuda::std::memory_order_release);
+}
+
+// One lane (s.row, bucket's T) after its wait: edges, prediction,
+// residual (s.pre), clip and write.
+__device__ __forceinline__ void run_lane(const ScanArgs& a, Smem& s,
+                                         int T) {
+  const int tid = threadIdx.x;
+  const int* row = s.row;
+  int* const above = s.above;
+  int* const left = s.left;
   int32_t* frame = a.frame;
   const int n = a.n, bd = a.bd;
   const int maxv = (1 << bd) - 1;
@@ -270,7 +375,7 @@ __global__ void __launch_bounds__(kThreads)
   const int base = row[F_BASE], stride = row[F_STRIDE];
   const int mf = row[F_MODE_FAMILY];
   const int w = row[F_W], h = row[F_H], lw = row[F_LW];
-  auto at = [&](int idx) { return frame[clampi(idx, 0, n - 1)]; };
+  auto at = [&](int idx) { return __ldcg(frame + clampi(idx, 0, n - 1)); };
 
   // edges: AboveRow / LeftCol with the corner at index 0 (_gather_edges)
   const int size = 2 * T;
@@ -331,13 +436,14 @@ __global__ void __launch_bounds__(kThreads)
     if (warp < 2) {
       const int* e = warp ? left : above;
       const int cnt = warp ? h : w;
-      int s = 0;
-      for (int k = lane; k < cnt; k += 32) s += e[1 + k];
-      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) dc_sum[warp] = s;
+      int sum = 0;
+      for (int k = lane; k < cnt; k += 32) sum += e[1 + k];
+      for (int o = 16; o; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) s.dc_sum[warp] = sum;
     }
     __syncthreads();
-    const int s_a = dc_sum[0], s_l = dc_sum[1];
+    const int s_a = s.dc_sum[0], s_l = s.dc_sum[1];
     const int dc_case = row[F_DC_CASE];
     const int size_l = w + h;
     dc = dc_case == 0   ? (s_a + s_l + (size_l >> 1)) / size_l
@@ -348,25 +454,25 @@ __global__ void __launch_bounds__(kThreads)
     if (a.eef) {
       // corner filter, then the edge filter of both edges
       if (tid == 0) {
-        corner_v = row[F_CORNER_FILT] > 0
-                       ? (left[1] * 5 + above[0] * 6 + above[1] * 5 + 8) >> 4
-                       : above[0];
-        above[0] = corner_v;
-        left[0] = corner_v;
+        s.corner_v = row[F_CORNER_FILT] > 0
+                         ? (left[1] * 5 + above[0] * 6 + above[1] * 5 + 8) >> 4
+                         : above[0];
+        above[0] = s.corner_v;
+        left[0] = s.corner_v;
       }
       __syncthreads();
       for (int k = tid; k < 2 * (size + 1); k += kThreads) {
         const int side = k > size;
         const int i = side ? k - size - 1 : k;
-        filt[side][i] =
+        s.filt[side][i] =
             side ? edge_filter_px(left, i, row[F_NPX_LEFT], row[F_STR_LEFT],
-                                  size, a.kern)
+                                  size, s.kern)
                  : edge_filter_px(above, i, row[F_NPX_ABOVE],
-                                  row[F_STR_ABOVE], size, a.kern);
+                                  row[F_STR_ABOVE], size, s.kern);
       }
       __syncthreads();
-      eA = filt[0];
-      eL = filt[1];
+      eA = s.filt[0];
+      eL = s.filt[1];
     }
     const int p_angle = row[F_P_ANGLE];
     const int npx_a = w + (p_angle < 90 ? h : 0);
@@ -375,12 +481,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = tid; k < 2 * lutlen; k += kThreads) {
       const int side = k >= lutlen;
       const int kk = side ? k - lutlen : k;
-      lut[side][kk] = side ? lut_entry(eL, kk, T, row[F_UP_LEFT], npx_l, maxv)
-                           : lut_entry(eA, kk, T, row[F_UP_ABOVE], npx_a, maxv);
+      s.lut[side][kk] =
+          side ? lut_entry(eL, kk, T, row[F_UP_LEFT], npx_l, maxv)
+               : lut_entry(eA, kk, T, row[F_UP_ABOVE], npx_a, maxv);
     }
     __syncthreads();
   } else if (mf == MF_FI) {
     // serial 4x2 patch recursion [SPEC §7.11.2.3], by anti-diagonals
+    int* const fibuf = s.fibuf;
     const int W1 = w + 1;
     for (int k = tid; k < (h + 1) * W1; k += kThreads) {
       const int r = k / W1, c = k - r * W1;
@@ -388,7 +496,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const int nc = w >> 2, nr = h >> 1;
-    const int32_t* tv = a.fi_taps + 56 * clampi(row[F_FI_MODE], 0, 4);
+    const int* tv = s.fi_taps + 56 * clampi(row[F_FI_MODE], 0, 4);
     for (int d = 0; d < nr + nc - 1; ++d) {
       for (int t = tid; t < nc * 8; t += kThreads) {
         const int sj = t >> 3, k = t & 7, si = d - sj;
@@ -398,10 +506,10 @@ __global__ void __launch_bounds__(kThreads)
         const int pv[7] = {fibuf[o],     fibuf[o + 1],  fibuf[o + 2],
                            fibuf[o + 3], fibuf[o + 4],  fibuf[o + W1],
                            fibuf[o + 2 * W1]};
-        int s = 0;
+        int sum = 0;
 #pragma unroll
-        for (int m = 0; m < 7; ++m) s += tv[k * 7 + m] * pv[m];
-        const int v = s >= 0 ? (s + 8) >> 4 : -((-s + 8) >> 4);
+        for (int m = 0; m < 7; ++m) sum += tv[k * 7 + m] * pv[m];
+        const int v = sum >= 0 ? (sum + 8) >> 4 : -((-sum + 8) >> 4);
         fibuf[i * W1 + j + (k & 3) + (k >> 2) * W1] = clampi(v, 0, maxv);
       }
       __syncthreads();
@@ -415,7 +523,7 @@ __global__ void __launch_bounds__(kThreads)
     const int ly = min((y + i) << sub_y, row[F_CFL_MAXY]);
     const int lx = min((x + j) << sub_x, row[F_CFL_MAXX]);
     const int bb = max(row[F_LBASE] + ly * lstride + lx, 0);
-    auto lat = [&](int idx) { return frame[min(idx, n - 1)]; };
+    auto lat = [&](int idx) { return __ldcg(frame + min(idx, n - 1)); };
     if (sub_x && sub_y)
       return (lat(bb) + lat(bb + 1) + lat(bb + lstride) +
               lat(bb + lstride + 1))
@@ -425,15 +533,16 @@ __global__ void __launch_bounds__(kThreads)
   };
   const int npix = w * h;
   if (cfl) {
-    int s = 0;
-    for (int p = tid; p < npix; p += kThreads) s += cfl_t(p >> lw, p & (w - 1));
-    const int tot = block_sum(s, red);
+    int sum = 0;
+    for (int p = tid; p < npix; p += kThreads)
+      sum += cfl_t(p >> lw, p & (w - 1));
+    const int tot = block_sum(sum, s.red);
     const int shift = row[F_LW] + row[F_LH];
     cfl_avg = (tot + (1 << max(shift - 1, 0))) >> shift;
   }
 
   // predict, add the residual, clip, write the w x h pixels
-  const int res_idx = row[F_RES_IDX];
+  const bool has_res = row[F_RES_IDX] >= 0;
   const int sm_top = a.sm_len - 1;
   for (int p = tid; p < npix; p += kThreads) {
     const int i = p >> lw, j = p & (w - 1);
@@ -462,15 +571,11 @@ __global__ void __launch_bounds__(kThreads)
         break;
       }
       case MF_DIR:
-        v = dir_px(lut[0], lut[1], i, j, w, h, T, row[F_P_ANGLE], row[F_DX],
-                   row[F_DY], row[F_UP_ABOVE], row[F_UP_LEFT]);
-        break;
-      case MF_PAL:
-        v = a.pal[bucket][(size_t)max(row[F_PAL_IDX], 0) * T * T + i * T +
-                          j];
+        v = dir_px(s.lut[0], s.lut[1], i, j, w, h, T, row[F_P_ANGLE],
+                   row[F_DX], row[F_DY], row[F_UP_ABOVE], row[F_UP_LEFT]);
         break;
       case MF_FI:
-        v = fibuf[(i + 1) * (w + 1) + (j + 1)];
+        v = s.fibuf[(i + 1) * (w + 1) + (j + 1)];
         break;
       case MF_INTER:
         // the MC pass wrote this block's prediction into the frame
@@ -478,8 +583,8 @@ __global__ void __launch_bounds__(kThreads)
         break;
       default: {
         // the smooth modes [SPEC §7.11.2.6] (_smooth_all)
-        const int sw_w = a.sm[clampi(w + j, 0, sm_top)];
-        const int sw_h = a.sm[clampi(h + i, 0, sm_top)];
+        const int sw_w = s.sm[clampi(w + j, 0, sm_top)];
+        const int sw_h = s.sm[clampi(h + i, 0, sm_top)];
         const int av = above[1 + j], lv2 = left[1 + i];
         const int right = above[w], bottom = left[h];
         if (mf == MF_SMOOTH)
@@ -492,24 +597,114 @@ __global__ void __launch_bounds__(kThreads)
           v = (sw_w * lv2 + (256 - sw_w) * right + 128) >> 8;
       }
     }
-    if (res_idx >= 0) {
-      const int r = static_cast<int>(static_cast<const Res*>(
-          a.res)[clampi(res_idx + i * w + j, 0, a.res_len - 1)]);
-      v = clampi(v + r, 0, maxv);
-    }
+    // a palette lane's pixels were finished before the wait
+    if (mf == MF_PAL)
+      v = s.pre[p];
+    else if (has_res)
+      v = clampi(v + s.pre[p], 0, maxv);
     if (fidx >= 0 && fidx < n) frame[fidx] = v;
   }
 }
 
-__global__ void empty_kernel() {}
+// The scan (kPixels) or its protocol alone (the floor: tickets, waits and
+// publishes, no pixel work), until the tickets run out.
+template <typename Res, bool kPixels>
+__device__ __forceinline__ void scan_blocks(const ScanArgs& a) {
+  __shared__ Smem s;
+  const int tid = threadIdx.x;
+  if constexpr (kPixels) {
+    for (int k = tid; k < kKern; k += kThreads) s.kern[k] = a.kern[k];
+    for (int k = tid; k < a.sm_len; k += kThreads) s.sm[k] = a.sm[k];
+    for (int k = tid; k < kFiTaps; k += kThreads) s.fi_taps[k] = a.fi_taps[k];
+  }
+  for (;;) {
+    if (tid == 0) take_ticket(a, s);
+    __syncthreads();
+    if (s.ticket[0] >= a.tickets_n) return;
+    const int bucket = s.ticket[1 + K_BUCKET];
+    const int level = s.ticket[1 + K_LEVEL];
+    if constexpr (kPixels) {
+      // all that does not depend on the frame: the lane row, the residual
+      // and a palette lane's prediction
+      const int T = a.ts[bucket];
+      const int32_t* src =
+          a.rows[bucket] + (size_t)s.ticket[1 + K_ROW] * kFields;
+      if (tid < kFields) s.row[tid] = src[tid];
+      __syncthreads();
+      const int w = s.row[F_W], lw = s.row[F_LW];
+      const int npix = w * s.row[F_H];
+      const int res_idx = s.row[F_RES_IDX];
+      const bool pal = s.row[F_MODE_FAMILY] == MF_PAL;
+      const int32_t* pmap =
+          pal ? a.pal[bucket] + (size_t)max(s.row[F_PAL_IDX], 0) * T * T
+              : nullptr;
+      const int maxv = (1 << a.bd) - 1;
+      for (int p = tid; p < npix; p += kThreads) {
+        const int i = p >> lw, j = p & (w - 1);
+        const int r =
+            res_idx >= 0
+                ? static_cast<int>(static_cast<const Res*>(
+                      a.res)[clampi(res_idx + i * w + j, 0, a.res_len - 1)])
+                : 0;
+        if (pal) {
+          const int v = pmap[i * T + j];
+          s.pre[p] = res_idx >= 0 ? clampi(v + r, 0, maxv) : v;
+        } else {
+          s.pre[p] = r;
+        }
+      }
+    }
+    if (tid == 0) wait_level(a, level, s.ticket[1 + K_WAIT]);
+    __syncthreads();
+    if constexpr (kPixels) run_lane(a, s, a.ts[bucket]);
+    __syncthreads();
+    if (tid == 0) publish(a, level);
+  }
+}
 
-}  // namespace
+template <typename Res>
+__global__ void __launch_bounds__(kThreads)
+    wavefront_scan_kernel(const ScanArgs a) {
+  scan_blocks<Res, true>(a);
+}
 
-// Launches the lanes of wavefront level `level` (`lanes` of them, all
-// buckets) on `stream`.  `params`: kParams int64 in Param order.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int wavefront_level(const long long* params, int level, int lanes,
-                               void* stream) {
+__global__ void __launch_bounds__(kThreads)
+    wavefront_floor_kernel(const ScanArgs a) {
+  scan_blocks<int16_t, false>(a);
+}
+
+using Kernel = void (*)(ScanArgs);
+
+// Launches `kernel` (kernel `id` of 3: its cache slot) with one block for
+// each ticket, up to the blocks resident at once on the current device
+// (SMs x occupancy, queried once a device).  Returns the error code.
+int launch(Kernel kernel, int id, ScanArgs a, cudaStream_t stream) {
+  static std::atomic<int> cached[3][kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidValue;
+  int resident = cached[id][dev].load(std::memory_order_relaxed);
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return err;
+    resident = sms * per_sm;
+    if (resident <= 0) return cudaErrorInvalidConfiguration;
+    cached[id][dev].store(resident, std::memory_order_relaxed);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.tickets_n < resident ? a.tickets_n : resident);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+ScanArgs unpack(const long long* params, int tickets) {
   ScanArgs a;
   a.frame = reinterpret_cast<int32_t*>(params[P_FRAME]);
   a.res = reinterpret_cast<const void*>(params[P_RES]);
@@ -518,10 +713,12 @@ extern "C" int wavefront_level(const long long* params, int level, int lanes,
     a.pal[k] = reinterpret_cast<const int32_t*>(params[P_PAL0 + k]);
     a.ts[k] = static_cast<int>(params[P_T0 + k]);
   }
-  a.levels = reinterpret_cast<const int32_t*>(params[P_LEVELS]);
+  a.tickets = reinterpret_cast<const int32_t*>(params[P_TICKETS]);
+  a.counters = reinterpret_cast<int*>(params[P_COUNTERS]);
   a.kern = reinterpret_cast<const int32_t*>(params[P_KERN]);
   a.sm = reinterpret_cast<const int32_t*>(params[P_SM]);
   a.fi_taps = reinterpret_cast<const int32_t*>(params[P_FI_TAPS]);
+  a.tickets_n = tickets;
   a.n = static_cast<int>(params[P_N]);
   a.res_len = static_cast<int>(params[P_RES_LEN]);
   a.sm_len = static_cast<int>(params[P_SM_LEN]);
@@ -530,22 +727,34 @@ extern "C" int wavefront_level(const long long* params, int level, int lanes,
   a.sub_x = static_cast<int>(params[P_SUB_X]);
   a.sub_y = static_cast<int>(params[P_SUB_Y]);
   a.eef = static_cast<int>(params[P_EEF]);
-  if (lanes <= 0) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (params[P_RES_BYTES] == 2)
-    wavefront_level_kernel<int16_t><<<lanes, kThreads, 0, s>>>(a, level);
-  else if (params[P_RES_BYTES] == 4)
-    wavefront_level_kernel<int32_t><<<lanes, kThreads, 0, s>>>(a, level);
-  else
-    return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+  return a;
 }
 
-// Launches `count` empty kernels back to back on `stream`: what one link
-// of a chain of dependent launches costs the card, the floor a level
-// pays (the chain term of the scan's bound).  Returns cudaGetLastError().
-extern "C" int wavefront_empty_launches(int count, void* stream) {
+}  // namespace
+
+// Runs the scan of every lane of the ticket table (`tickets` of them) in
+// one launch on `stream`.  `params`: kParams int64 in Param order; the
+// counters zeroed.  Returns the launch's error code (0: launched).
+extern "C" int wavefront_scan(const long long* params, int tickets,
+                              void* stream) {
+  const ScanArgs a = unpack(params, tickets);
+  if (tickets <= 0 || a.sm_len > kSmLen || a.nb < 1 || a.nb > kMaxBuckets)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  for (int k = 0; k < count; ++k) empty_kernel<<<1, 32, 0, s>>>();
-  return static_cast<int>(cudaGetLastError());
+  if (params[P_RES_BYTES] == 2)
+    return launch(wavefront_scan_kernel<int16_t>, 0, a, s);
+  if (params[P_RES_BYTES] == 4)
+    return launch(wavefront_scan_kernel<int32_t>, 1, a, s);
+  return cudaErrorInvalidValue;
+}
+
+// The same launch, tickets, waits and publishes with no pixel work (no
+// frame, residual or lane row is read): the chain term of the scan of
+// these tickets.  Same arguments; returns the launch's error code.
+extern "C" int wavefront_scan_floor(const long long* params, int tickets,
+                                    void* stream) {
+  const ScanArgs a = unpack(params, tickets);
+  if (tickets <= 0) return cudaErrorInvalidValue;
+  return launch(wavefront_floor_kernel, 2, a,
+                static_cast<cudaStream_t>(stream));
 }

@@ -25,12 +25,14 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# name -> (C function, argtypes); every pointer and the stream are void*
+# name -> (C functions, their argtypes); every pointer and the stream are
+# void*
 KERNELS = {
-    "cdef_filter": ("cdef_shard", [_P] * 10 + [_I] * 7 + [_P]),
-    "cdef_frame": ("cdef_frame",
+    "cdef_filter": (("cdef_shard",), [_P] * 10 + [_I] * 7 + [_P]),
+    "cdef_frame": (("cdef_frame",),
                    [_P] * 3 + [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P]),
-    "wavefront_scan": ("wavefront_level", [_P, _I, _I, _P]),
+    "wavefront_scan": (("wavefront_scan", "wavefront_scan_floor"),
+                       [_P, _I, _P]),
 }
 
 _loaded = {}
@@ -107,9 +109,10 @@ def load_kernel(name):
     if lib is None:
         build_kernels([name])
         lib = ctypes.CDLL(_paths(name)[1])
-        fn_name, argtypes = KERNELS[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn_names, argtypes = KERNELS[name]
+        for fn_name in fn_names:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

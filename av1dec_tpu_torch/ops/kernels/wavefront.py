@@ -6,13 +6,14 @@ per-block int scalars (`pipeline/wavefront.py`); the device executes
 gathers, integer arithmetic and scatters.
 
 `scan_into` is the whole-batch scan.  A CUDA frame buffer runs the
-hand-written kernel `csrc/wavefront_scan.cu`, one launch per wavefront
-level with every lane of the level (all shape buckets) in it, from the
-per-level lane ranges `plan_levels` builds (counted in `launches`); a
-CPU buffer runs the plain version `_scan_plain`; nothing else is
-accepted.  The schedule puts every block's prediction inputs at strictly
-earlier levels, so the lanes of one level are independent and the
-windows of the plain version are not needed on the card.
+hand-written kernel `csrc/wavefront_scan.cu`, one persistent launch for
+the whole batch (counted in `launches`): its blocks take the lanes in
+the level-major ticket order `plan_levels` builds and wait on device
+counters, not on launch boundaries, for the level before; a CPU buffer
+runs the plain version `_scan_plain`; nothing else is accepted.  The
+schedule puts every block's prediction inputs at strictly earlier
+levels, so the lanes of one level are independent and the windows of
+the plain version are not needed on the card.
 
 `_scan_plain` keeps the JAX package's lanes and windows: blocks are
 grouped into shape buckets T in {16, 32, 64}, each level is split into
@@ -70,14 +71,24 @@ _FI_TAPS = np.asarray(FILTER_INTRA_TAPS, np.int32)[:, :, :7]  # [5, 8, 7]
 # per-window host flags (plan_windows): columns of the [S, nb, 5] array
 FLAG_DIR, FLAG_PAL, FLAG_CFL, FLAG_FI_PATCHES, FLAG_INTER = range(5)
 
-# launches of the CUDA scan kernel in this process (one per level)
+# launches of the CUDA scan kernel in this process (one per scan with
+# lanes)
 launches = 0
+# the last launch's (counter buffer, lanes of each level with lanes), for
+# `levels_completed`
+last_scan = None
 # the kernel's int64 parameter array (`csrc/wavefront_scan.cu`, enum
 # Param): pointers, then ints; up to 3 buckets
 _PARAMS = ["frame", "res", "rows0", "rows1", "rows2", "pal0", "pal1",
-           "pal2", "levels", "kern", "sm", "fi_taps", "n", "res_len",
-           "res_bytes", "sm_len", "nb", "t0", "t1", "t2", "bd", "sub_x",
-           "sub_y", "eef"]
+           "pal2", "tickets", "counters", "kern", "sm", "fi_taps", "n",
+           "res_len", "res_bytes", "sm_len", "nb", "t0", "t1", "t2", "bd",
+           "sub_x", "sub_y", "eef"]
+# columns of the ticket table (`plan_levels`; enum Ticket of the source)
+_TICKET = ["bucket", "row", "level", "wait"]
+# ints from one level's done counter to the next in the counter buffer
+# (kCounterStride): [0] is the ticket counter, [(k + 1) * stride] the
+# lanes of the k-th level with lanes that the kernel published
+COUNTER_STRIDE = 32
 
 
 def make_windows(starts_by_t, counts_by_t, bcaps, ts):
@@ -146,14 +157,32 @@ def plan_windows(packed_by_t, starts_by_t, counts_by_t, buckets):
 
 
 def plan_levels(starts_by_t, counts_by_t, ts):
-    """Per-level lane ranges of a batch for the kernel: (table [L, nb, 2]
-    int32, (start, count) of each level's run of lanes in each bucket's
-    rows, and lanes [L] int64, the lanes of each level over all
-    buckets), both numpy."""
+    """The kernel's view of a batch, all numpy: (table [L, nb, 2] int32,
+    (start, count) of each level's run of lanes in each bucket's rows;
+    lanes [L] int64, the lanes of each level over all buckets; tickets
+    [N, 4] int32, every lane once in level-major order (levels with
+    lanes only, buckets in order inside a level, rows in order inside a
+    bucket), with the columns of `_TICKET`: its bucket, its row, its
+    level's index among the levels with lanes, and the lanes of the
+    previous level with lanes, which that level's done counter must
+    reach before it runs (0 at the first))."""
     table = np.stack([np.stack([np.asarray(starts_by_t[t], np.int32),
                                 np.asarray(counts_by_t[t], np.int32)],
                                axis=1) for t in ts], axis=1)
-    return table, table[:, :, 1].astype(np.int64).sum(axis=1)
+    lanes = table[:, :, 1].astype(np.int64).sum(axis=1)
+    live = np.nonzero(lanes)[0]
+    runs = table[live].reshape(-1, 2).astype(np.int64)  # level-major
+    counts = runs[:, 1]
+    first = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    rank = np.repeat(np.arange(len(live)), len(ts))
+    waits = np.concatenate([[0], lanes[live][:-1]])
+    tickets = np.stack([
+        np.repeat(np.tile(np.arange(len(ts)), len(live)), counts),
+        np.repeat(runs[:, 0] - first, counts) + np.arange(total),
+        np.repeat(rank, counts), np.repeat(waits[rank], counts)],
+        axis=1).astype(np.int32)
+    return table, lanes, tickets
 
 
 @functools.lru_cache(maxsize=None)
@@ -531,9 +560,9 @@ def scan_into(frame, packed, res_flat, pal_tensors, config, windows,
     for 8-bit); pal_tensors: {T: [P, T, T] int32}, all on one device.
     config: (((T, Bmax), ...), bd, sub_x, sub_y, eef[, has_inter]).
     windows: (ws, wc, flags) host arrays from `plan_windows`; levels:
-    (table, lanes) from `plan_levels` and the table on the frame's
-    device.  A CUDA frame runs the kernel (`levels`), a CPU frame the
-    plain version (`windows`)."""
+    (table, lanes, tickets) from `plan_levels` and the tickets on the
+    frame's device.  A CUDA frame runs the kernel (`levels`), a CPU
+    frame the plain version (`windows`)."""
     dev = frame.device
     if dev.type == "cpu":
         _scan_plain(frame, packed, res_flat, pal_tensors, config, windows)
@@ -562,18 +591,33 @@ def _scan_plain(frame, packed, res_flat, pal_tensors, config, windows):
 
 
 def _scan_kernel(frame, packed, res_flat, pal_tensors, config, levels):
-    """The scan on the card: one `wavefront_level` launch for each level
-    with lanes, counted in `launches`.  Raises on inputs the kernel does
-    not take or a failed launch."""
-    global launches
+    """The scan on the card: one `wavefront_scan` launch for a batch with
+    lanes, counted in `launches`, its counter buffer kept in
+    `last_scan`.  Raises on inputs the kernel does not take or a failed
+    launch."""
+    global launches, last_scan
+    out = _launch("wavefront_scan", frame, packed, res_flat, pal_tensors,
+                  config, levels)
+    if out is not None:
+        launches += 1
+        last_scan = out
+
+
+def _launch(entry, frame, packed, res_flat, pal_tensors, config, levels):
+    """Launch C entry `entry` of `csrc/wavefront_scan.cu` (the scan, or
+    `wavefront_scan_floor`, its protocol alone) on `scan_into`'s inputs,
+    on the frame's device and its current stream, with a zeroed counter
+    buffer of its own.  Returns (counters, lanes of each level with
+    lanes), or None when the batch has no lane."""
     (buckets, bd, sub_x, sub_y, eef, *_has_inter) = config
-    table_np, lanes, table = levels
+    table_np, lanes, tickets_np, tickets = levels
     dev = frame.device
     ts = [t for t, _ in buckets]
     if not 1 <= len(ts) <= 3 or any(t not in (16, 32, 64) for t in ts):
         raise ValueError(f"scan_into: buckets {ts}, the kernel takes 1-3 "
                          f"of 16, 32, 64")
-    want = {"frame": (frame, torch.int32), "table": (table, torch.int32)}
+    want = {"frame": (frame, torch.int32),
+            "tickets": (tickets, torch.int32)}
     for t in ts:
         want[f"rows {t}"] = (packed[t], torch.int32)
         want[f"palettes {t}"] = (pal_tensors[t], torch.int32)
@@ -586,41 +630,76 @@ def _scan_kernel(frame, packed, res_flat, pal_tensors, config, levels):
             or not res_flat.is_contiguous():
         raise ValueError(f"scan_into: residuals must be contiguous int16 "
                          f"or int32 on {dev}")
+    total = int(lanes.sum())
     if any(packed[t].ndim != 2 or packed[t].shape[1] != len(_DEV_FIELDS)
-           for t in ts) or tuple(table.shape) != (len(lanes), len(ts), 2):
+           for t in ts) or table_np.shape != (len(lanes), len(ts), 2) or \
+            tuple(tickets.shape) != (total, len(_TICKET)) or \
+            tickets_np.shape != tuple(tickets.shape):
         raise ValueError("scan_into: lane rows must be [N, "
-                         f"{len(_DEV_FIELDS)}] and the level table "
-                         f"[{len(lanes)}, {len(ts)}, 2]")
+                         f"{len(_DEV_FIELDS)}], the level table "
+                         f"[{len(lanes)}, {len(ts)}, 2] and the tickets "
+                         f"[{total}, {len(_TICKET)}]")
     ends = table_np[:, :, 0].astype(np.int64) + table_np[:, :, 1]
     if len(lanes) and ((table_np < 0).any() or any(
             ends[:, bi].max() > packed[t].shape[0]
             for bi, t in enumerate(ts))):
         raise ValueError("scan_into: the level table names lanes beyond "
                          "the lane rows")
+    if total == 0:
+        return None
+    bucket, row = tickets_np[:, 0], tickets_np[:, 1]
+    rows_of = np.asarray([packed[t].shape[0] for t in ts])
+    if bucket.min() < 0 or bucket.max() >= len(ts) or row.min() < 0 or \
+            (row >= rows_of[np.minimum(bucket, len(ts) - 1)]).any():
+        raise ValueError("scan_into: the tickets name lanes beyond the "
+                         "lane rows")
     from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    lib = load_kernel("wavefront_scan")
-    c = _consts(dev)
+    fn = getattr(load_kernel("wavefront_scan"), entry)
+    live = lanes[lanes > 0]
+    with torch.cuda.device(dev):
+        # the first `_consts` of a device uploads (a synchronising copy),
+        # so the parameters are made before the no-sync guard
+        counters = torch.zeros((len(live) + 1) * COUNTER_STRIDE,
+                               dtype=torch.int32, device=dev)
+        ptrs = _params(frame, packed, res_flat, pal_tensors, config,
+                       tickets, counters)
+        arr = np.asarray([v.data_ptr() if torch.is_tensor(v) else v
+                          for v in ptrs], np.int64)
+        with _no_device_sync(dev):
+            err = fn(arr.ctypes.data, total,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return counters, live
+
+
+def _params(frame, packed, res_flat, pal_tensors, config, tickets,
+            counters):
+    """The kernel's parameters in `_PARAMS` order: tensors where it takes
+    a pointer, ints; a bucket the batch does not have is 0 throughout."""
+    (buckets, bd, sub_x, sub_y, eef, *_has_inter) = config
+    c = _consts(frame.device)
     params = dict(
-        frame=frame.data_ptr(), res=res_flat.data_ptr(),
-        levels=table.data_ptr(), kern=c["kern"].data_ptr(),
-        sm=c["sm"].data_ptr(), fi_taps=c["fi_taps"].data_ptr(),
+        frame=frame, res=res_flat, tickets=tickets, counters=counters,
+        kern=c["kern"], sm=c["sm"], fi_taps=c["fi_taps"],
         n=frame.shape[0] - 1, res_len=res_flat.shape[0],
-        res_bytes=res_flat.element_size(), sm_len=_SM.shape[0], nb=len(ts),
-        bd=bd, sub_x=sub_x, sub_y=sub_y, eef=int(bool(eef)))
-    for k, t in enumerate(ts):
-        params.update({f"rows{k}": packed[t].data_ptr(),
-                       f"pal{k}": pal_tensors[t].data_ptr(), f"t{k}": t})
-    # a bucket the batch does not have is 0 throughout
-    arr = np.asarray([params.get(k, 0) for k in _PARAMS], np.int64)
-    todo = [(lvl, int(lanes[lvl])) for lvl in np.nonzero(lanes)[0].tolist()]
-    with torch.cuda.device(dev), _no_device_sync(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for lvl, count in todo:
-            err = lib.wavefront_level(arr.ctypes.data, lvl, count, stream)
-            if err != 0:
-                raise RuntimeError(f"wavefront_scan launch failed at level "
-                                   f"{lvl}: CUDA error {err}")
-            launches += 1
+        res_bytes=res_flat.element_size(), sm_len=_SM.shape[0],
+        nb=len(buckets), bd=bd, sub_x=sub_x, sub_y=sub_y,
+        eef=int(bool(eef)))
+    for k, (t, _) in enumerate(buckets):
+        params.update({f"rows{k}": packed[t], f"pal{k}": pal_tensors[t],
+                       f"t{k}": t})
+    return [params.get(k, 0) for k in _PARAMS]
+
+
+def levels_completed(scan=None):
+    """The levels with lanes whose done counter reached their lanes in a
+    launch's counter buffer (`scan`, as `_launch` returns it; default the
+    last scan's, `last_scan`): every level, once the launch ran to its
+    end.  Synchronises with the card."""
+    counters, live = last_scan if scan is None else scan
+    done = counters.view(-1, COUNTER_STRIDE)[1:, 0].cpu().numpy()
+    return int((done == live).sum())
 
 
 @contextlib.contextmanager

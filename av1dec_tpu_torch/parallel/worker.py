@@ -28,8 +28,9 @@ its rule: NCCL when every rank has a card) and runs, in order:
   the card to itself);
 - `--frames`: `decode_frames_sharded` of STREAM's first FRAMES_DATA
   coded frames over a mesh with data = FRAMES_DATA, as display MD5s per
-  frame, with the index of the frame this rank scanned and the scan
-  kernel's launches for it.
+  frame, with the index of the frame this rank scanned, the scan
+  kernel's launches for it and the levels with lanes that their
+  counters report complete.
 Writes DIR/rank<R>.json.  `launch` starts N such processes and collects
 their results.
 """
@@ -177,9 +178,11 @@ def _time_cdef(planes, gates, bd, mesh, iters):
     """Mean device ms of the cdef_shard kernels and mean host ms of the
     halo exchanges of one cdef_sharded call, over `iters` calls."""
     import torch
+    import torch.distributed as dist
 
+    from av1dec_tpu_torch.parallel import dist as pdist
     from av1dec_tpu_torch.parallel import sharded_cdef
-    from av1dec_tpu_torch.profiling import device_events
+    from av1dec_tpu_torch.profiling import complete_events
     spent = []  # seconds of halo exchange, per cdef_sharded call
     real = sharded_cdef.exchange_halo_cols_fill
 
@@ -194,18 +197,20 @@ def _time_cdef(planes, gates, bd, mesh, iters):
     def call():
         spent.append(0.0)
         sharded_cdef.cdef_sharded(planes, gates, bd, mesh)
-    # one trace on every rank, as the calls are collective: no retry
+
+    def agree(ok):
+        # the calls are collective: every rank takes its trace again when
+        # any rank's lost records
+        flag = torch.tensor([int(ok)],
+                            device=pdist.wire_device(None, planes[0].device))
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
     sharded_cdef.exchange_halo_cols_fill = timed
     try:
-        ev = device_events(call, iters)
+        ev, _ = complete_events(call, iters, "cdef_shard_kernel", agree)
     finally:
         sharded_cdef.exchange_halo_cols_fill = real
-    if ev is None:
-        raise RuntimeError("the profiler recorded no marker kernel")
     ev = [e for e in ev if "cdef_shard_kernel" in e.name]
-    if len(ev) != iters:
-        raise RuntimeError(f"the profiler recorded {len(ev)} cdef_shard "
-                           f"kernels for {iters} calls")
     return {"kernel_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 /
             iters, "kernels_per_call": len(ev) / iters,
             "halo_ms": sum(spent[-iters:]) * 1e3 / iters}
@@ -235,9 +240,12 @@ def _frames_run(args, dev, res):
     scans0 = wavefront.launches
     frames = decode_frames_sharded(drs, mesh, device=dev)
     res["frames_s"] = time.perf_counter() - t0
-    # this rank scanned frame `frame_index`: its scan kernel launches
+    # this rank scanned frame `frame_index`: its scan kernel launches and
+    # the levels with lanes their counters report complete
     res["frame_index"] = mesh.index("data")
     res["scan_launches"] = wavefront.launches - scans0
+    res["scan_levels"] = (wavefront.levels_completed()
+                          if res["scan_launches"] else 0)
     res["frames"] = [
         display_md5(planes, dr.sch.bd, dr.hdr["upscaled_width"],
                     dr.hdr["frame_height"],

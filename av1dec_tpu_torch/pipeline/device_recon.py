@@ -563,8 +563,9 @@ def to_torch_inputs(prep, device):
     the keys and layouts are the same; "mc" entries may hold either
     package's InterPlan lanes) to `device`, and plan the scan: the
     plain version's windows and their host flags, and the kernel's
-    per-level lane ranges (uploaded once; the lanes of each level stay
-    on the host, so the launch loop reads no device value).  Reference
+    per-level lane ranges and ticket table (`plan_levels`; the tickets
+    uploaded once, the rest kept on the host, so the launch reads no
+    device value).  Reference
     pieces already on `device` are not copied.  Returns the dict
     `dispatch_batch` and `scan_batch` take."""
     dev = torch.device(device)
@@ -573,8 +574,8 @@ def to_torch_inputs(prep, device):
     windows = plan_windows({t: inputs[t][0] for t in ts},
                            {t: inputs[t][1] for t in ts},
                            {t: inputs[t][2] for t in ts}, prep["buckets"])
-    table, level_lanes = plan_levels({t: inputs[t][1] for t in ts},
-                                     {t: inputs[t][2] for t in ts}, ts)
+    table, level_lanes, tickets = plan_levels(
+        {t: inputs[t][1] for t in ts}, {t: inputs[t][2] for t in ts}, ts)
     bd = prep["config"][1]
     mc = []
     for f, lanes, pieces in prep.get("mc", ()):
@@ -586,7 +587,7 @@ def to_torch_inputs(prep, device):
         "pal": {t: _i32(a, dev) for t, a in prep["pal_np"].items()},
         "packed": {t: _i32(inputs[t][0], dev) for t in ts},
         "windows": windows,
-        "levels": (table, level_lanes, _i32(table, dev)),
+        "levels": (table, level_lanes, tickets, _i32(tickets, dev)),
         "config": tuple(prep["config"]),
         "dbl": prep["dbl"],
         "mc": mc,

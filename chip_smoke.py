@@ -23,18 +23,21 @@ Phases (each raises on failure, so the script exits non-zero):
    then the frame kernel's device time (torch.profiler: kernel time
    only, no host cost) and its wrapper-inclusive time at 1080p 4:2:0,
    beside the plain version's time and the bound for the same inputs;
-   - `wavefront_scan` (the scan kernel, one launch per wavefront level
-     with lanes) against `_scan_plain` on the same buffer after the MC
-     pass, byte-equal: the first 4-frame batch of the 1080p all-intra
-     stream, every small stream's first batch (up to 4 frames without
-     inter lanes) and first frame with MF_INTER lanes, as
+   - `wavefront_scan` (the scan kernel, one persistent launch per batch,
+     its lanes in level-major ticket order waiting on device counters)
+     against `_scan_plain` on the same buffer after the MC pass,
+     byte-equal, each batch SCAN_REPEATS times (a stale edge pixel is a
+     race that shows only on some runs): the first 4-frame batch of the
+     1080p all-intra stream, every small stream's first batch (up to 4
+     frames without inter lanes) and first frame with MF_INTER lanes, as
      `Decoder(device="cuda")` builds them (8 and 10 bits; 4:2:0, 4:4:4
      and mono), and frame 1 of the 1080p low-delay stream (MF_INTER
-     lanes); then, on the 1080p batch and that inter frame, its device
-     time (its launches' kernel intervals), launches, wrapper-inclusive
-     time, the plain version's time and the bound (bytes, operations,
-     and the chain term: levels x the measured time of one empty launch
-     in a back-to-back chain);
+     lanes); one launch a batch whose counters report every level with
+     lanes complete; then, on the 1080p batch and that inter frame, its
+     device time (its kernel interval), wrapper-inclusive time, the
+     plain version's time and the bound (bytes, operations, and the
+     chain term: the device time of `wavefront_scan_floor`, the same
+     tickets, waits and publishes with no pixel work);
    and B7, the
    device residuals (`ops/kernels/itx.residual_bucket`, plain torch),
    byte-equal on the card to its CPU run and to the NumPy spec model on
@@ -126,19 +129,21 @@ Phases (each raises on failure, so the script exits non-zero):
       manifest.
 
 Every decode of phases 3-8 holds the scan kernel's launches equal to
-the levels with lanes of the scans it ran (`ScanLevels`; in 7b each GOP
-worker frame's `Decoder.stats` `scan_launches`, in 7d each rank's, against
-the levels of the frame it scanned): every scan ran on the kernel.
+the scans with lanes it ran, and the levels their counters report
+complete equal to those scans' levels with lanes (`ScanLevels`; in 7b
+each GOP worker frame's `Decoder.stats` `scan_launches` and
+`scan_levels`, in 7d each rank's, against the levels of the frame it
+scanned): every scan ran on the kernel, to its last level.
 The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
 8a-c and 8e for `cdef_frame` (36), and phase 7's checked calls (counted
 in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
-(2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` every
-checked scan of phases 3-8 in this process (3, 4, 5 and 7a, 6, 8a-c,
-8e; its times are phase 2's on the 1080p batch).  `cdef_frame`'s times there are
-phase 2's (1080p 4:2:0, random all-tap strengths); `cdef_filter`'s are
-those of its `Decoder`-path launch, shard 0 of 2 in 8d (luma pad
-1084x964, chroma pads 544x484), and its max_abs_err is phase 8's
-(phases 2 and 7 raise on any).
+(2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` the
+launches of every checked scan of phases 3-8 in this process (3, 4, 5
+and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch).
+`cdef_frame`'s times there are phase 2's (1080p 4:2:0, random all-tap
+strengths); `cdef_filter`'s are those of its `Decoder`-path launch,
+shard 0 of 2 in 8d (luma pad 1084x964, chroma pads 544x484), and its
+max_abs_err is phase 8's (phases 2 and 7 raise on any).
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -168,8 +173,6 @@ GOP_TUS = 4  # phase 7b: the first TUs (one GOP each) of BIG
 SCALE_RANKS = 4  # phase 7c-d: gloo ranks on the one card
 N_SPACE = (2, 4)  # phase 7c: space shards of sharded CDEF
 TIME_ITERS = 20  # phase 7c: timed sharded CDEF calls per rank
-# traces taken before a lost marker or kernel record fails a phase
-TRACE_ATTEMPTS = 3
 # H100 SXM data sheet: HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
 # int32 add, compare, min/max, shift and multiply-add results per clock
@@ -204,8 +207,9 @@ INT8_OPS_PER_S = 1.979e15
 SCAN_OPS_PER_PX = 3
 SCAN_FAMILY_OPS = {7: 13, 4: 10, 5: 5, 6: 5, 3: 12, 9: 18}
 SCAN_CFL_OPS_PER_PX = 14
-# chain term: empty kernels launched back to back to time one link
-CHAIN_LAUNCHES = 2000
+# phase 2: runs of the scan kernel on each checked batch, each
+# byte-compared with the plain scan
+SCAN_REPEATS = 50
 # (subx, suby) of each chroma format; None is mono
 FORMATS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "mono": None}
 GATES = ("mixed", "zero", "pri_only", "sec_only", "all_taps")
@@ -251,17 +255,15 @@ def cuda_ms(fn, iters):
 
 def _device_events(fn, iters, name=None):
     """torch.profiler's device intervals of `iters` warm calls of fn()
-    (`profiling.device_events`); with `name`, the trace must hold `iters`
-    kernels whose name holds it.  A trace that lost the marker or one of
-    those kernels is taken again, up to TRACE_ATTEMPTS traces."""
-    from av1dec_tpu_torch.profiling import device_events
-    for _ in range(TRACE_ATTEMPTS):
-        ev = device_events(fn, iters)
-        if ev and (name is None or
-                   sum(name in e.name for e in ev) == iters):
-            return ev
-    raise RuntimeError(f"the profiler lost the marker or a {name} kernel "
-                       f"in {TRACE_ATTEMPTS} traces of {iters} calls")
+    from a trace that lost no record (`profiling.complete_events`: with
+    `name`, it holds `iters` kernels whose name holds it); a trace taken
+    again is logged.  Raises when every trace lost records."""
+    from av1dec_tpu_torch.profiling import complete_events
+    ev, traces = complete_events(fn, iters, name)
+    if traces > 1:
+        log(f"profiler: {traces} traces of {iters} calls for one whole "
+            f"trace{f' of {name}' if name else ''}")
+    return ev
 
 
 def device_ms(fn, iters):
@@ -556,7 +558,8 @@ def scan_work(inputs):
 
 
 def scan_levels(inputs):
-    """Levels with lanes of a batch: the scan kernel's launches."""
+    """Levels with lanes of a batch: what the kernel's counters report
+    complete after its launch."""
     return int((inputs["levels"][1] > 0).sum())
 
 
@@ -576,59 +579,61 @@ def scan_args(inputs):
             inputs["config"])
 
 
-def check_scan(inputs, what):
+def check_scan(inputs, what, repeats=SCAN_REPEATS):
     """The batch's scan on the card, `scan_into` (the kernel, one launch
-    per level with lanes), held byte-equal to the plain `_scan_plain` on
-    the same buffer after the MC pass; returns its launches."""
+    per batch with lanes), `repeats` times from the same buffer after the
+    MC pass, each run byte-equal to the plain `_scan_plain` on it and its
+    counters reporting every level with lanes complete; returns its
+    launches."""
     from av1dec_tpu_torch.ops.kernels import wavefront as wf
     base = mc_frame(inputs)
-    got, ref = base.clone(), base.clone()
-    before = wf.launches
-    wf.scan_into(got, *scan_args(inputs), inputs["windows"],
-                 inputs["levels"])
-    launched = wf.launches - before
+    ref = base.clone()
     wf._scan_plain(ref, *scan_args(inputs), inputs["windows"])
-    torch.cuda.synchronize()
-    err = int((got[:-1] - ref[:-1]).abs().max())
-    if err or launched != scan_levels(inputs):
-        raise AssertionError(f"wavefront_scan != plain at {what}: max abs "
-                             f"err {err}, {launched} launches for "
-                             f"{scan_levels(inputs)} levels with lanes")
+    levels = scan_levels(inputs)
+    launched = 0
+    for run in range(repeats):
+        got = base.clone()
+        before = wf.launches
+        wf.scan_into(got, *scan_args(inputs), inputs["windows"],
+                     inputs["levels"])
+        launched += wf.launches - before
+        torch.cuda.synchronize()
+        err = int((got[:-1] - ref[:-1]).abs().max())
+        done = wf.levels_completed() if levels else 0
+        if err or launched != (run + 1) * (levels > 0) or done != levels:
+            raise AssertionError(
+                f"wavefront_scan != plain at {what}, run {run + 1} of "
+                f"{repeats}: max abs err {err}, {launched} launches, "
+                f"{done} of {levels} levels with lanes complete")
     return launched
 
 
-def chain_link_ms():
-    """Mean ms of one empty kernel launched back to back with others
-    (`wavefront_empty_launches`, CHAIN_LAUNCHES of them): what one link
-    of the scan's chain of dependent launches costs at least."""
-    import ctypes
+def floor_ms(inputs, iters):
+    """Device ms of `wavefront_scan_floor` on the batch's tickets (its
+    kernel interval): the same launch, tickets, waits and publishes as
+    the scan with no pixel work, the chain term of its bound.  Raises
+    unless its counters report every level with lanes complete."""
+    from av1dec_tpu_torch.ops.kernels import wavefront as wf
+    frame = mc_frame(inputs)
+    out = []
 
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    fn = load_kernel("wavefront_scan").wavefront_empty_launches
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        err = fn(CHAIN_LAUNCHES, stream)
-        b.record()
-        torch.cuda.synchronize()
-        if err:
-            raise RuntimeError(f"empty launches failed: CUDA error {err}")
-        best = min(best, a.elapsed_time(b) / CHAIN_LAUNCHES)
-    return best
+    def run():
+        out.append(wf._launch("wavefront_scan_floor", frame,
+                              *scan_args(inputs), inputs["levels"]))
+    ev = [e for e in _device_events(run, iters, "wavefront_floor_kernel")
+          if "wavefront_floor_kernel" in e.name]
+    torch.cuda.synchronize()
+    if wf.levels_completed(out[-1]) != scan_levels(inputs):
+        raise AssertionError("wavefront_scan_floor left levels incomplete")
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
 
 
-def time_scan(inputs, int_rate, link_ms, what, iters=20):
-    """The scan kernel's device ms (its launches' kernel intervals, no
-    host cost), its wrapper-inclusive ms (CUDA events around `scan_into`
-    calls), the plain version's ms on the same inputs, and the bound
-    (bytes and operations, and the chain term: levels x `link_ms`);
-    logged and returned as a dict."""
+def time_scan(inputs, int_rate, what, iters=20):
+    """The scan kernel's device ms (its kernel interval, no host cost),
+    its wrapper-inclusive ms (CUDA events around `scan_into` calls), the
+    plain version's ms on the same inputs, and the bound (bytes and
+    operations, and the chain term: `floor_ms`); logged and returned as
+    a dict."""
     from av1dec_tpu_torch.ops.kernels import wavefront as wf
     frame = mc_frame(inputs)
     levels = scan_levels(inputs)
@@ -636,13 +641,11 @@ def time_scan(inputs, int_rate, link_ms, what, iters=20):
     def run():
         wf.scan_into(frame, *scan_args(inputs), inputs["windows"],
                      inputs["levels"])
-    ev = [e for e in _device_events(run, iters)
-          if "wavefront_level_kernel" in e.name]
-    if len(ev) != iters * levels:
-        raise RuntimeError(f"the profiler recorded {len(ev)} scan kernels "
-                           f"for {iters} scans of {levels} levels")
+    ev = [e for e in _device_events(run, iters, "wavefront_scan_kernel")
+          if "wavefront_scan_kernel" in e.name]
     k = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
     w = cuda_ms(run, iters)
+    floor = floor_ms(inputs, iters)
     plain = frame.clone()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -655,10 +658,11 @@ def time_scan(inputs, int_rate, link_ms, what, iters=20):
     nbytes, ops, lanes, px = scan_work(inputs)
     terms = bound_terms(int_rate, nbytes, ops)
     out = {"what": what, "levels": levels, "lanes": lanes, "pixels": px,
-           "device_ms": k, "ms_per_launch": k / levels, "wrapper_ms": w,
-           "plain_ms": p, **terms, "chain_ms": levels * link_ms,
-           "link_ms": link_ms, "share_of_bound": terms["bound_ms"] / k,
-           "card": card_line()}
+           "device_ms": k, "launches_per_scan": len(ev) / iters,
+           "ms_per_level": k / levels, "wrapper_ms": w, "plain_ms": p,
+           **terms, "chain_ms": floor, "link_ms": floor / levels,
+           "share_of_bound": terms["bound_ms"] / k,
+           "share_of_chain": floor / k, "card": card_line()}
     log(json.dumps({"scan_kernel": out}))
     return out
 
@@ -739,31 +743,35 @@ def phase_scan(manifest, dev, int_rate):
                              f"{fmts}, MF_INTER batches "
                              f"{any(i for _, _, i in seen)}")
     log(f"kernel wavefront_scan: byte-equal to the plain scan on {n} "
-        f"batches ({BIG} frames 0-3, {BIG_INTER} frame 1, every small "
-        f"stream's first batch and first frame with MF_INTER lanes; "
-        f"{sorted(bds)}-bit, {sorted(fmts)}); {launches} launches, one "
-        f"per level with lanes; max abs err 0")
-    link = chain_link_ms()
-    out = time_scan(big_inputs, int_rate, link, f"{BIG} frames 0-3")
-    time_scan(inter_inputs, int_rate, link, f"{BIG_INTER} frame 1")
+        f"batches, {SCAN_REPEATS} runs each ({BIG} frames 0-3, "
+        f"{BIG_INTER} frame 1, every small stream's first batch and first "
+        f"frame with MF_INTER lanes; {sorted(bds)}-bit, {sorted(fmts)}); "
+        f"{launches} launches, one a run, each run's counters reporting "
+        f"every level with lanes complete; max abs err 0")
+    out = time_scan(big_inputs, int_rate, f"{BIG} frames 0-3")
+    time_scan(inter_inputs, int_rate, f"{BIG_INTER} frame 1")
     out["max_abs_err"] = 0
     return out
 
 
-# the levels each checked `ScanLevels` block scanned, in order: the scan
-# kernel's launches on the main paths
+# the scan kernel's launches in each checked `ScanLevels` block, in
+# order: its launches on the main paths
 MAIN_SCANS = []
 
 
 class ScanLevels:
-    """Inside `with`: counts the levels with lanes of every scan that
-    goes through `device_recon.scan_into` (from the lanes it is given),
-    and on leaving holds the scan kernel's launches (`wavefront.launches`,
-    set to 0 on entry) equal to them: every scan ran on the kernel."""
+    """Inside `with`: counts the scans that go through
+    `device_recon.scan_into`, those with lanes and their levels with
+    lanes (from the lanes each is given), keeping each launch's counter
+    buffer; on leaving, holds the scan kernel's launches
+    (`wavefront.launches`, set to 0 on entry) equal to the scans with
+    lanes, and the levels their counters report complete equal to those
+    levels: every scan ran on the kernel, to its last level."""
 
     def __init__(self, what):
         self.what = what
-        self.levels = self.scans = 0
+        self.levels = self.scans = self.with_lanes = 0
+        self.counters = []
 
     def __enter__(self):
         from av1dec_tpu_torch.ops.kernels import wavefront
@@ -771,9 +779,15 @@ class ScanLevels:
         self.real = device_recon.scan_into
 
         def counted(*args):
-            self.levels += int((args[6][1] > 0).sum())
+            levels = int((args[6][1] > 0).sum())
+            self.levels += levels
             self.scans += 1
-            return self.real(*args)
+            self.with_lanes += levels > 0
+            before = wavefront.launches
+            out = self.real(*args)
+            if wavefront.launches > before:
+                self.counters.append(wavefront.last_scan)
+            return out
         device_recon.scan_into = counted
         wavefront.launches = 0
         return self
@@ -783,17 +797,22 @@ class ScanLevels:
         from av1dec_tpu_torch.pipeline import device_recon
         device_recon.scan_into = self.real
         if kind is None:
-            if wavefront.launches != self.levels:
+            torch.cuda.synchronize()
+            done = sum(map(wavefront.levels_completed, self.counters))
+            if wavefront.launches != self.with_lanes or \
+                    done != self.levels:
                 raise AssertionError(
                     f"{self.what}: wavefront_scan launches "
-                    f"{wavefront.launches} != {self.levels} levels with "
-                    f"lanes in {self.scans} scans")
-            MAIN_SCANS.append(self.levels)
+                    f"{wavefront.launches} != {self.with_lanes} scans with "
+                    f"lanes of {self.scans}, or levels complete {done} != "
+                    f"{self.levels} levels with lanes")
+            MAIN_SCANS.append(wavefront.launches)
         return False
 
     def __str__(self):
-        return (f"wavefront_scan launches {self.levels} = levels with "
-                f"lanes of {self.scans} scans")
+        return (f"wavefront_scan launches {self.with_lanes} = scans with "
+                f"lanes of {self.scans}, their counters reporting all "
+                f"{self.levels} levels with lanes complete")
 
 
 def frame_levels(name, count):
@@ -810,8 +829,8 @@ def frame_levels(name, count):
             prep = prep_batch([DeviceRecon(parser.seq, hdr, plans)])
             ts = [t for t, _ in prep["buckets"]]
             inp = prep["inputs_np"]
-            _, lanes = plan_levels({t: inp[t][1] for t in ts},
-                                   {t: inp[t][2] for t in ts}, ts)
+            _, lanes, _ = plan_levels({t: inp[t][1] for t in ts},
+                                      {t: inp[t][2] for t in ts}, ts)
             out.append(int((lanes > 0).sum()))
     parser.close()
     return out
@@ -1307,13 +1326,15 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             raise AssertionError(f"GOP-parallel {BIG}: {len(got)} frames, "
                                  f"{len(stats)} GOPs, equal to the "
                                  f"manifest: {got == want[:GOP_TUS]}")
-        # each worker frame's scan ran on the kernel, one launch a level
+        # each worker frame's scan ran on the kernel, one launch to its
+        # last level
         levels = frame_levels(BIG, GOP_TUS)
-        scanned = [[r["scan_launches"] for r in st["frames"]]
-                   for st in stats]
-        if scanned != [[levels[st["gop"]]] for st in stats]:
-            raise AssertionError(f"GOP workers' wavefront_scan launches "
-                                 f"{scanned}, levels with lanes {levels}")
+        scanned = [[(r["scan_launches"], r["scan_levels"])
+                    for r in st["frames"]] for st in stats]
+        if scanned != [[(1, levels[st["gop"]])] for st in stats]:
+            raise AssertionError(f"GOP workers' (wavefront_scan launches, "
+                                 f"levels complete) {scanned}, levels "
+                                 f"with lanes {levels}")
         per_worker = {}
         for st in stats:
             per_worker.setdefault(st["pid"], []).extend(
@@ -1346,13 +1367,14 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             if rec["all_reduce"] != SCALE_RANKS * (SCALE_RANKS - 1) // 2:
                 raise AssertionError(f"rank {rec['rank']}: all_reduce "
                                      f"{rec['all_reduce']}")
-            if rec["frames"] != want[:2] or rec["scan_launches"] != \
-                    levels[rec["frame_index"]]:
+            if rec["frames"] != want[:2] or rec["scan_launches"] != 1 or \
+                    rec["scan_levels"] != levels[rec["frame_index"]]:
                 raise AssertionError(
                     f"rank {rec['rank']}: sharded frames equal to the "
                     f"manifest {rec['frames'] == want[:2]}; frame "
                     f"{rec['frame_index']}'s wavefront_scan launches "
-                    f"{rec['scan_launches']}, levels with lanes "
+                    f"{rec['scan_launches']} (1 expected), levels complete "
+                    f"{rec['scan_levels']}, levels with lanes "
                     f"{levels[rec['frame_index']]}")
             for n in N_SPACE:
                 c = rec["cdef"][str(n)]
@@ -1382,7 +1404,7 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             f"rank per call ({launches}), each byte-equal to "
             f"_cdef_shard_core on its bordered planes; sharded frames 0-1 "
             f"at data=2 match the manifest on every rank, each rank's scan "
-            f"one wavefront_scan launch a level (frames "
+            f"one wavefront_scan launch to its last level (frames "
             f"{res[0]['frames_s']:.3f} s on rank 0); launch "
             f"{t_launch:.3f} s")
         log(json.dumps({"sharded_cdef": rows, "card": card_line()}))

@@ -1,0 +1,256 @@
+// A CPU stand-in for the CUDA runtime and the device intrinsics that
+// av1dec_tpu_torch/csrc/wavefront_scan.cu uses, so that g++ compiles that
+// exact source and runs its kernels on the host
+// (tests/test_torch_scan_shim.py).  The test puts two one-line headers,
+// cuda_runtime.h and cuda/atomic, that include this file on the include
+// path, and compiles with -std=c++20 -pthread -DCUDA_CPU_SHIM_MAIN.
+//
+// A thread block is a process (fork), so that `__shared__`, which is
+// `static` here, is the block's own, and the blocks of a launch run at
+// once; a CUDA thread is a thread of that process.  The buffers the
+// blocks write (the frame and the counters) are mapped shared by the
+// runner (main, below).  __syncthreads and the warp shuffles are barriers;
+// atomicAdd, cuda::atomic_ref and __threadfence are the host's atomics and
+// fences; __ldcg is a plain (relaxed atomic) load; __nanosleep yields;
+// %globaltimer is the steady clock; __trap aborts the block, and the
+// launch then returns an error.  The device has one SM, on which
+// `cuda_cpu_shim_resident` blocks are resident.
+#pragma once
+
+#include <sched.h>
+#include <sys/mman.h>
+#include <sys/wait.h>
+#include <unistd.h>
+
+#include <atomic>
+#include <barrier>
+#include <chrono>
+#include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <string>
+#include <thread>
+#include <vector>
+
+#define CUDA_CPU_SHIM 1
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+
+struct uint3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+inline thread_local uint3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+
+using cudaStream_t = void*;
+enum cudaError_t : int {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorLaunchFailure = 719
+};
+enum cudaDeviceAttr : int { cudaDevAttrMultiProcessorCount = 16 };
+
+inline int cuda_cpu_shim_resident = 1;
+
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 1;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = cuda_cpu_shim_resident;
+  return cudaSuccess;
+}
+
+template <class T>
+inline T min(T a, T b) {
+  return b < a ? b : a;
+}
+template <class T>
+inline T max(T a, T b) {
+  return a < b ? b : a;
+}
+
+// the barriers of the block this process runs
+struct CudaCpuShimBlock {
+  std::unique_ptr<std::barrier<>> block;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  int shfl[32][32];
+};
+inline CudaCpuShimBlock* cuda_cpu_shim_block = nullptr;
+
+inline void __syncthreads() {
+  cuda_cpu_shim_block->block->arrive_and_wait();
+}
+inline int __shfl_xor_sync(unsigned, int v, int lane_mask) {
+  const unsigned warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto& b = *cuda_cpu_shim_block;
+  b.shfl[warp][lane] = v;
+  b.warps[warp]->arrive_and_wait();
+  const int got = b.shfl[warp][lane ^ lane_mask];
+  b.warps[warp]->arrive_and_wait();
+  return got;
+}
+template <class T>
+inline T __ldcg(const T* p) {
+  return __atomic_load_n(p, __ATOMIC_RELAXED);
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline void __nanosleep(unsigned) { sched_yield(); }
+[[noreturn]] inline void __trap() {
+  std::fprintf(stderr, "cuda_cpu_shim: __trap in block %u\n", blockIdx.x);
+  std::abort();
+}
+inline unsigned long long cuda_cpu_shim_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+namespace cuda {
+enum thread_scope { thread_scope_system, thread_scope_device,
+                    thread_scope_block };
+namespace std {
+using ::std::memory_order;
+using ::std::memory_order_acquire;
+using ::std::memory_order_relaxed;
+using ::std::memory_order_release;
+}  // namespace std
+template <class T, thread_scope>
+struct atomic_ref : ::std::atomic_ref<T> {
+  using ::std::atomic_ref<T>::atomic_ref;
+};
+}  // namespace cuda
+
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+};
+
+// Runs the config's grid of kernel f, each block a forked process of
+// blockDim.x threads, all at once; waits for them.  An error if a block
+// failed.
+template <class A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
+                               void (*f)(A), A arg) {
+  const dim3 grid = config->gridDim, block = config->blockDim;
+  std::fflush(nullptr);
+  std::vector<pid_t> kids;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    const pid_t pid = fork();
+    if (pid < 0) return cudaErrorLaunchFailure;
+    if (pid == 0) {
+      blockDim = block;
+      gridDim = grid;
+      CudaCpuShimBlock state;
+      state.block = std::make_unique<std::barrier<>>(block.x);
+      for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
+        state.warps.push_back(std::make_unique<std::barrier<>>(32));
+      cuda_cpu_shim_block = &state;
+      std::vector<std::thread> threads;
+      for (unsigned t = 0; t < block.x; ++t)
+        threads.emplace_back([=] {
+          threadIdx.x = t;
+          blockIdx.x = b;
+          f(arg);
+        });
+      for (auto& th : threads) th.join();
+      std::fflush(nullptr);
+      _exit(0);
+    }
+    kids.push_back(pid);
+  }
+  bool ok = true;
+  for (const pid_t pid : kids) {
+    int status = 0;
+    waitpid(pid, &status, 0);
+    ok = ok && WIFEXITED(status) && WEXITSTATUS(status) == 0;
+  }
+  return ok ? cudaSuccess : cudaErrorLaunchFailure;
+}
+
+#ifdef CUDA_CPU_SHIM_MAIN
+extern "C" int wavefront_scan(const long long*, int, void*);
+extern "C" int wavefront_scan_floor(const long long*, int, void*);
+
+// shim DIR ENTRY RESIDENT TICKETS: DIR/params.txt holds one line a
+// parameter, "i VALUE" or "p FILE SHARED"; a pointer parameter points
+// at FILE's bytes (mapped shared when SHARED is 1, and then written back
+// to FILE.out after the launch).  ENTRY: scan or floor.  Prints the
+// entry's return code and exits with it.
+int main(int argc, char** argv) {
+  if (argc != 5) return 2;
+  const std::string dir = argv[1];
+  cuda_cpu_shim_resident = std::atoi(argv[3]);
+  struct Buf {
+    std::string file;
+    void* p;
+    size_t bytes;
+  };
+  std::vector<long long> params;
+  std::vector<Buf> shared;
+  FILE* pf = std::fopen((dir + "/params.txt").c_str(), "r");
+  if (!pf) return 2;
+  char kind[2];
+  while (std::fscanf(pf, "%1s", kind) == 1) {
+    if (kind[0] == 'i') {
+      long long v;
+      if (std::fscanf(pf, "%lld", &v) != 1) return 2;
+      params.push_back(v);
+      continue;
+    }
+    char name[256];
+    int is_shared;
+    if (std::fscanf(pf, "%255s %d", name, &is_shared) != 2) return 2;
+    FILE* f = std::fopen((dir + "/" + name).c_str(), "rb");
+    if (!f) return 2;
+    std::fseek(f, 0, SEEK_END);
+    const size_t bytes = std::ftell(f);
+    std::fseek(f, 0, SEEK_SET);
+    void* p = is_shared ? mmap(nullptr, bytes + 1, PROT_READ | PROT_WRITE,
+                               MAP_SHARED | MAP_ANONYMOUS, -1, 0)
+                        : std::malloc(bytes + 1);
+    if (p == nullptr || p == MAP_FAILED ||
+        std::fread(p, 1, bytes, f) != bytes)
+      return 2;
+    std::fclose(f);
+    if (is_shared) shared.push_back({name, p, bytes});
+    params.push_back(reinterpret_cast<long long>(p));
+  }
+  std::fclose(pf);
+  const int tickets = std::atoi(argv[4]);
+  const int rc = std::strcmp(argv[2], "floor") == 0
+                     ? wavefront_scan_floor(params.data(), tickets, nullptr)
+                     : wavefront_scan(params.data(), tickets, nullptr);
+  for (const Buf& b : shared) {
+    FILE* f = std::fopen((dir + "/" + b.file + ".out").c_str(), "wb");
+    if (!f || std::fwrite(b.p, 1, b.bytes, f) != b.bytes) return 2;
+    std::fclose(f);
+  }
+  std::printf("%d\n", rc);
+  return rc;
+}
+#endif

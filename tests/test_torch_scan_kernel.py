@@ -1,22 +1,28 @@
 """The wavefront scan kernel of av1dec_tpu_torch (`csrc/wavefront_scan.cu`,
-one launch per wavefront level) and what it rests on, on the CPU:
+one persistent launch per batch, its lanes in level-major ticket order)
+and what it rests on, on the CPU:
 
-- level-order independence, the precondition of one launch per level:
-  the plain scan run level by level, each lane a window of its own and
-  the lanes and buckets of each level in reverse order, gives the same
-  buffer as `scan_batch`
+- level-order independence, the precondition of running a level's
+  lanes in any order: the plain scan run level by level, each lane a
+  window of its own and the lanes and buckets of each level in reverse
+  order, gives the same buffer as `scan_batch`
   and as the JAX package's `run_wavefront` on the same prep inputs
   (intra streams through the JAX package's prep, MF_INTER lanes through
   the port's InterPlan and `mc_into`);
-- the per-level lane tables `to_torch_inputs` uploads cover every lane
-  exactly once, in level order, and agree with `make_windows`;
-- the field, mode-family and parameter constants of the CUDA source
-  equal `_DEV_FIELDS`, the `MF_*` codes and `_PARAMS`;
+- the per-level lane tables cover every lane exactly once, in level
+  order, and agree with `make_windows`; the ticket table
+  `to_torch_inputs` uploads holds every lane once, level-major, each
+  ticket waiting on the previous level with lanes;
+- the field, mode-family, ticket, parameter and size constants of the
+  CUDA source equal `_DEV_FIELDS`, the `MF_*` codes, `_TICKET`,
+  `_PARAMS` and the tables';
 - `scan_into` runs the plain version on a CPU buffer and refuses other
   devices;
 
 and, marked `gpu` (skipped without a card), the kernel against the
-plain version on the card on every committed small stream.
+plain version on the card on every committed small stream, once and 50
+times over (the CPU shim of `tests/test_torch_scan_shim.py` runs the
+same source on the host).
 """
 import os
 import re
@@ -153,13 +159,13 @@ def test_level_tables(name, k, native_lib):
         drs = [DeviceRecon(s, h, p) for s, h, p in parse(name, "torch")[:k]]
         prep = prep_batch(drs)
     inputs = to_torch_inputs(prep, "cpu")
-    table, lanes, dev_table = inputs["levels"]
+    table, lanes, tickets, dev_tickets = inputs["levels"]
     buckets = prep["buckets"]
     ts = [t for t, _ in buckets]
     L = max(len(prep["inputs_np"][t][1]) for t in ts)
     assert table.shape == (L, len(ts), 2) and table.dtype == np.int32
-    assert dev_table.dtype == torch.int32 and \
-        np.array_equal(dev_table.numpy(), table)
+    assert dev_tickets.dtype == torch.int32 and \
+        np.array_equal(dev_tickets.numpy(), tickets)
     np.testing.assert_array_equal(lanes, table[:, :, 1].sum(axis=1))
     for bi, t in enumerate(ts):
         n = prep["inputs_np"][t][0].shape[0]
@@ -193,6 +199,54 @@ def test_level_tables(name, k, native_lib):
                     np.diff(ws[sl, bi][live]), wc[sl, bi][live][:-1])
 
 
+@pytest.mark.parametrize("name,k", ORDER_CASES,
+                         ids=[c[0] for c in ORDER_CASES])
+def test_ticket_order(name, k, native_lib):
+    """Every lane once, level-major (levels with lanes in order, buckets
+    in order inside a level, rows in order inside a bucket); each ticket
+    names its level's index among the levels with lanes and waits for
+    the lanes of the previous one."""
+    from av1dec_tpu_torch.ops.kernels.wavefront import _TICKET, plan_levels
+    from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
+                                                        prep_batch,
+                                                        to_torch_inputs)
+    if name == "lowdelay":
+        prep = _port_inter_prep(name)
+    else:
+        prep = prep_batch([DeviceRecon(s, h, p)
+                           for s, h, p in parse(name, "torch")[:k]])
+    table, lanes, tickets, dev_tickets = to_torch_inputs(prep,
+                                                         "cpu")["levels"]
+    ts = [t for t, _ in prep["buckets"]]
+    assert tickets.dtype == np.int32 and \
+        tickets.shape == (lanes.sum(), len(_TICKET))
+    assert np.array_equal(dev_tickets.numpy(), tickets)
+    col = {c: tickets[:, i] for i, c in enumerate(_TICKET)}
+    live = np.nonzero(lanes)[0]
+    want = [(bi, row, rank)
+            for rank, lvl in enumerate(live) for bi in range(len(ts))
+            for row in range(table[lvl, bi, 0],
+                             table[lvl, bi, 0] + table[lvl, bi, 1])]
+    assert [tuple(r) for r in tickets[:, :3].tolist()] == want
+    # each lane of each bucket exactly once
+    for bi, t in enumerate(ts):
+        rows = np.sort(col["row"][col["bucket"] == bi])
+        np.testing.assert_array_equal(rows, np.arange(len(rows)))
+        assert len(rows) == prep["inputs_np"][t][0].shape[0]
+    # the lanes of each level with lanes match plan_levels', and each
+    # ticket waits for the lanes of the previous level with lanes
+    np.testing.assert_array_equal(np.bincount(col["level"]), lanes[live])
+    np.testing.assert_array_equal(
+        col["wait"], np.where(col["level"] > 0,
+                              lanes[live][col["level"] - 1], 0))
+    # the same tables again from the level runs alone
+    again = plan_levels({t: table[:, bi, 0] for bi, t in enumerate(ts)},
+                        {t: table[:, bi, 1] for bi, t in enumerate(ts)},
+                        ts)
+    np.testing.assert_array_equal(again[2], tickets)
+    assert (lanes[live] > 1).any() and len(live) > 1
+
+
 def _enum(src, name):
     body = re.search(r"enum %s : int \{(.*?)\};" % name, src, re.S)
     assert body, name
@@ -202,6 +256,7 @@ def _enum(src, name):
 
 def test_cuda_constants_locked():
     from av1dec_tpu_torch.ops.kernels import cuda_build
+    from av1dec_tpu_torch.ops.kernels import wavefront as W
     from av1dec_tpu_torch.ops.kernels.wavefront import _DEV_FIELDS, _PARAMS
     from av1dec_tpu_torch.pipeline import device_recon
     from av1dec_tpu_torch.pipeline import wavefront as wf
@@ -219,10 +274,23 @@ def test_cuda_constants_locked():
         max(device_recon.BUCKETS)
     assert int(re.search(r"kMaxBuckets = (\d+);", src).group(1)) >= \
         len(device_recon.BUCKETS)
-    # the C signature the ctypes binding declares
-    fn, argtypes = cuda_build.KERNELS["wavefront_scan"]
-    sig = re.search(r'extern "C" int %s\((.*?)\)' % fn, src, re.S).group(1)
-    assert len(sig.split(",")) == len(argtypes) == 4
+    ticket = _enum(src, "Ticket")
+    assert ticket.pop("kTicketFields") == len(W._TICKET)
+    assert ticket == {"K_" + n.upper(): i for i, n in enumerate(W._TICKET)}
+    sizes = {name: int(re.search(r"%s = ([^;]+);" % name, src).group(1)
+                       .replace("*", " ").split()[0]) for name in
+             ("kCounterStride", "kSmLen")}
+    assert sizes == {"kCounterStride": W.COUNTER_STRIDE,
+                     "kSmLen": len(W._SM)}
+    assert "kKern = 4 * 5;" in src and W._KERN.shape == (4, 5)
+    assert "kFiTaps = 5 * 8 * 7;" in src and W._FI_TAPS.shape == (5, 8, 7)
+    # the C signatures the ctypes binding declares
+    fns, argtypes = cuda_build.KERNELS["wavefront_scan"]
+    assert fns == ("wavefront_scan", "wavefront_scan_floor")
+    for fn in fns:
+        sig = re.search(r'extern "C" int %s\((.*?)\)' % fn, src,
+                        re.S).group(1)
+        assert len(sig.split(",")) == len(argtypes) == 3
 
 
 def test_scan_into_devices(native_lib):
@@ -244,34 +312,88 @@ def test_scan_into_devices(native_lib):
     with pytest.raises(ValueError, match="unsupported device"):
         W.scan_into(torch.zeros(8, dtype=torch.int32, device="meta"),
                     *args)
+    # the launch's checks, which run before the kernel is loaded, refuse
+    # tickets beyond the lane rows and tables of the wrong shape
+    table, lanes, tickets, _ = inputs["levels"]
+    bad = tickets.copy()
+    bad[-1, 1] = inputs["packed"][inputs["config"][0][bad[-1, 0]][0]] \
+        .shape[0]
+    for levels, match in (
+            ((table, lanes, bad, torch.as_tensor(bad)), "beyond the lane"),
+            ((table, lanes, tickets[1:], torch.as_tensor(tickets[1:])),
+             "the tickets")):
+        with pytest.raises(ValueError, match=match):
+            W._launch("wavefront_scan", frame, *args[:4], levels)
+    # a batch without lanes launches nothing
+    ts = [t for t, _ in inputs["config"][0]]
+    zeros = {t: np.zeros(3, np.int32) for t in ts}
+    empty = W.plan_levels(zeros, zeros, ts)
+    assert empty[2].shape == (0, len(W._TICKET))
+    assert W._launch("wavefront_scan", frame, *args[:4], empty +
+                     (torch.as_tensor(empty[2]),)) is None
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name", small_streams())
-def test_cuda_kernel_matches_plain(name):
-    """The kernel (`scan_into` on the card, one launch per level with
-    lanes) == the plain scan on the card, byte for byte, on every frame
-    of the stream that the device path takes (with its MC pass), and on
-    its first up to 4 intra frames as one batch."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
-                    "(run with `pytest -m gpu` on the card)")
-    from av1dec_tpu_torch.ops.kernels import wavefront as W
+def _card_batches(name):
+    """The batches of a small stream the card tests check: every frame
+    the device path takes, alone (with its MC pass), and its first up to
+    4 intra frames as one batch; each as `to_torch_inputs` gives it on
+    the card."""
     from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
                                                         to_torch_inputs)
     _, _, drs = decode_capture(name)
     drs = [dr for dr in drs if dr.supported()]
     intra = [dr for dr in drs if dr._inter_plan is None][:4]
     batches = [[dr] for dr in drs] + ([intra] if len(intra) > 1 else [])
-    for batch in batches:
-        inputs = to_torch_inputs(prep_batch(batch), "cuda")
-        frame = _mc_frame(inputs)
-        plain = frame.clone()
-        args = (inputs["packed"], inputs["res"], inputs["pal"],
-                inputs["config"])
+    return [to_torch_inputs(prep_batch(b), "cuda") for b in batches]
+
+
+def _check_on_card(inputs, runs, what):
+    """`runs` kernel scans of the batch from its buffer after the MC
+    pass, each byte-equal to the plain scan on the card, one launch a
+    run whose counters report every level with lanes complete."""
+    from av1dec_tpu_torch.ops.kernels import wavefront as W
+    frame = _mc_frame(inputs)
+    plain = frame.clone()
+    args = (inputs["packed"], inputs["res"], inputs["pal"],
+            inputs["config"])
+    W._scan_plain(plain, *args, inputs["windows"])
+    levels = int((inputs["levels"][1] > 0).sum())
+    for run in range(runs):
+        got = frame.clone()
         before = W.launches
-        W.scan_into(frame, *args, inputs["windows"], inputs["levels"])
-        assert W.launches - before == int((inputs["levels"][1] > 0).sum())
-        W._scan_plain(plain, *args, inputs["windows"])
+        W.scan_into(got, *args, inputs["windows"], inputs["levels"])
+        assert W.launches - before == int(levels > 0), what
         torch.cuda.synchronize()
-        assert torch.equal(frame[:-1], plain[:-1]), name
+        assert torch.equal(got[:-1], plain[:-1]), (what, run)
+        if levels:
+            assert W.levels_completed() == levels, (what, run)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(run with `pytest -m gpu` on the card)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", small_streams())
+def test_cuda_kernel_matches_plain(name):
+    """The kernel (`scan_into` on the card, one launch per batch with
+    lanes) == the plain scan on the card, byte for byte, on every frame
+    of the stream that the device path takes (with its MC pass), and on
+    its first up to 4 intra frames as one batch."""
+    _need_card()
+    for inputs in _card_batches(name):
+        _check_on_card(inputs, 1, name)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_repeated():
+    """50 runs of the kernel on each batch of every small stream, each
+    byte-equal to the plain scan: a stale edge pixel (a lane that read
+    the frame before a lane it depends on published) shows only on
+    some runs."""
+    _need_card()
+    for name in small_streams():
+        for inputs in _card_batches(name):
+            _check_on_card(inputs, 50, name)

@@ -20,7 +20,6 @@ the pixels that differ from this tree's output; then each shard's bound
 limit, and a JSON line with all of it.
 """
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -36,7 +35,6 @@ import other_checkout  # noqa: E402
 SHARDS = (2, 4)
 KERNEL = "cdef_shard_kernel"
 _KERNELS = "av1dec_tpu_torch.ops.kernels"
-_BUILD_MOD = _KERNELS + ".cuda_build"
 
 
 class Version:
@@ -49,21 +47,15 @@ class Version:
             self.cdef, self.build = cdef, cuda_build
         else:
             self.cdef = other_checkout.load(root, _KERNELS + ".cdef", tag)
-            self.build = other_checkout.load(root, _BUILD_MOD, tag)
+            self.build = other_checkout.load(root, other_checkout.BUILD_MOD,
+                                              tag)
             if not hasattr(self.cdef, "cdef_shard"):
                 raise SystemExit(f"{root} has no cdef.cdef_shard")
         self.build.build_kernels()
 
-    @contextlib.contextmanager
     def active(self):
-        """This version's `cuda_build` module in place of the tree's, for
-        the import inside its wrappers."""
-        real = sys.modules[_BUILD_MOD]
-        sys.modules[_BUILD_MOD] = self.build
-        try:
-            yield
-        finally:
-            sys.modules[_BUILD_MOD] = real
+        """This version's `cuda_build` in place of the tree's."""
+        return other_checkout.kernels_of(self.build)
 
     def route(self, pads, strengths, bd, damping, subx, suby):
         """A function of no argument that runs the shard route once."""
