@@ -33,6 +33,8 @@ KERNELS = {
                    [_P] * 3 + [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P]),
     "wavefront_scan": (("wavefront_scan", "wavefront_scan_floor"),
                        [_P, _I, _P]),
+    "mc": (("mc_frame",), [_P, _I, _P]),
+    "itx": (("itx_residuals",), [_P, _I, _P]),
 }
 
 _loaded = {}

@@ -13,15 +13,33 @@ does (the NumPy spec model computes in int64 and does not wrap; on a
 conformant stream the two agree).  Buckets run at their exact batch
 size: the JAX package's power-of-two padding only keeps its jit keys
 stable.  `residual_step` is not ported: nothing calls it.
+
+`residuals_packed` runs every bucket of a call at once, from one packed
+int32 buffer (`pack_buckets`: a descriptor table, then every block's
+coded levels).  A CUDA buffer runs the hand-written kernel `csrc/itx.cu`,
+one launch for all the blocks (counted in `launches`); a CPU buffer runs
+the plain version `_residuals_plain`, `residual_bucket` per bucket;
+nothing else is accepted.
 """
 import math
 
+import numpy as np
 import torch
 
 from av1dec_tpu_torch.ops.spec import itx as S
 
 # Tx_Scale by pixel count: (pels > 256) + (pels > 1024)
 _TX_SCALE = {3: 1, 9: 1, 10: 1, 17: 1, 18: 1, 4: 2, 11: 2, 12: 2}
+
+# launches of the CUDA residual kernel in this process (one per packed
+# call with blocks)
+launches = 0
+# columns of the descriptor table, one row a transform block (`csrc/itx.cu`
+# enum Desc): its levels' and its residual's offsets, its transform and
+# its quantizers
+DESC_FIELDS = ["lev", "out", "tx_size", "tx_type", "dcq", "acq"]
+# the kernel's int64 parameter array (enum Param)
+_PARAMS = ["out", "desc", "levels", "levels_len", "bd"]
 
 
 def valid_transforms():
@@ -109,3 +127,114 @@ def residual_bucket(levels, dcq, acq, tx_size, tx_type, bd):
     d = dequant_batch(levels, q, tx_size, bd, False)
     return inverse_transform_batch(d.reshape(-1, adj_h, adj_w), tx_size,
                                    tx_type, bd)
+
+
+def pack_buckets(buckets):
+    """One int32 buffer for every block of `buckets` [(levels [B, n],
+    dcq [B], acq [B], tx_size, tx_type)] (host arrays, levels in coded
+    layout): the [blocks, len(DESC_FIELDS)] descriptor table, then the
+    levels of every block in order.  Returns (buffer, spans, residual
+    words): spans [(tx_size, tx_type, first block, blocks, levels
+    offset, residual offset)] a bucket, the offsets into the levels
+    part and into the [words] residual output."""
+    spans, blk, lev, out = [], 0, 0, 0
+    for levels, _, _, tsz, tt in buckets:
+        B, n = levels.shape
+        w, h = S.TX_DIMS[tsz]
+        spans.append((tsz, tt, blk, B, lev, out))
+        blk, lev, out = blk + B, lev + B * n, out + B * w * h
+    # at least one level word: the kernel's levels are never empty
+    buf = np.zeros(blk * len(DESC_FIELDS) + max(lev, 1), np.int32)
+    desc = buf[:blk * len(DESC_FIELDS)].reshape(blk, len(DESC_FIELDS))
+    levs = buf[blk * len(DESC_FIELDS):]
+    for (levels, dcq, acq, _, _), (tsz, tt, b0, B, l0, o0) in zip(buckets,
+                                                                  spans):
+        n = levels.shape[1]
+        w, h = S.TX_DIMS[tsz]
+        d = desc[b0:b0 + B]
+        d[:, 0] = l0 + n * np.arange(B)
+        d[:, 1] = o0 + w * h * np.arange(B)
+        d[:, 2], d[:, 3] = tsz, tt
+        d[:, 4], d[:, 5] = dcq, acq
+        levs[l0:l0 + B * n] = levels.reshape(-1)
+    return buf, spans, out
+
+
+def residuals_packed(buf, spans, words, bd):
+    """The residuals of `pack_buckets`' buffer on its device: int32
+    [words], each bucket's [B, h, w] blocks at its span's offset.  A
+    CUDA buffer runs the kernel, a CPU buffer the plain version."""
+    dev = buf.device
+    if dev.type == "cpu":
+        return _residuals_plain(buf, spans, words, bd)
+    if dev.type == "cuda":
+        return _residuals_kernel(buf, spans, words, bd)
+    raise ValueError(f"residuals_packed: unsupported device {dev}")
+
+
+def _split(buf, spans):
+    """(descriptor table, levels) views of a packed buffer."""
+    blocks = sum(s[3] for s in spans)
+    k = blocks * len(DESC_FIELDS)
+    return buf[:k].view(blocks, len(DESC_FIELDS)), buf[k:]
+
+
+def _residuals_plain(buf, spans, words, bd):
+    """The plain version: `residual_bucket` on each span of the packed
+    buffer, on any device (`residuals_packed`'s arguments)."""
+    desc, levs = _split(buf, spans)
+    out = torch.empty(words, dtype=torch.int32, device=buf.device)
+    for tsz, tt, b0, B, l0, o0 in spans:
+        w, h = S.TX_DIMS[tsz]
+        n = min(w, 32) * min(h, 32)
+        d = desc[b0:b0 + B]
+        res = residual_bucket(levs[l0:l0 + B * n].view(B, n), d[:, 4],
+                              d[:, 5], tsz, tt, bd)
+        out[o0:o0 + B * w * h] = res.reshape(-1)
+    return out
+
+
+def _residuals_kernel(buf, spans, words, bd):
+    """The residuals on the card: one `itx_residuals` launch for every
+    block, on the buffer's device and its current stream, counted in
+    `launches`.  Raises on inputs the kernel does not take or a failed
+    launch."""
+    global launches
+    dev = buf.device
+    if buf.dtype != torch.int32 or buf.ndim != 1 or \
+            not buf.is_contiguous() or bd not in (8, 10, 12):
+        raise ValueError("residuals_packed: the buffer must be flat "
+                         "contiguous int32, the bit depth 8, 10 or 12")
+    valid = set(valid_transforms())
+    if any((tsz, tt) not in valid for tsz, tt, *_ in spans):
+        raise ValueError("residuals_packed: a (tx_size, tx_type) the "
+                         "kernel does not take")
+    blocks = sum(s[3] for s in spans)
+    levels = buf.numel() - blocks * len(DESC_FIELDS)
+    for tsz, _, _, B, l0, o0 in spans:
+        w, h = S.TX_DIMS[tsz]
+        if l0 + B * min(w, 32) * min(h, 32) > levels or \
+                o0 + B * w * h > words:
+            raise ValueError("residuals_packed: a span beyond the levels "
+                             "or the residuals")
+    out = torch.empty(words, dtype=torch.int32, device=dev)
+    if blocks == 0:
+        return out
+    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
+    fn = load_kernel("itx").itx_residuals
+    arr = np.asarray([v.data_ptr() if torch.is_tensor(v) else v
+                      for v in _params(out, buf, spans, bd)], np.int64)
+    with torch.cuda.device(dev):
+        err = fn(arr.ctypes.data, blocks,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"itx_residuals launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def _params(out, buf, spans, bd):
+    """The kernel's parameters in `_PARAMS` order: tensors where it takes
+    a pointer, ints."""
+    desc, levs = _split(buf, spans)
+    return [out, desc, levs, levs.shape[0], bd]

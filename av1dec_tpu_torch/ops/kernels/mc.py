@@ -20,12 +20,18 @@ on the device path):
   w0*p0 + w1*p1 >> shift form [SPEC §7.11.3.15]);
 - one scatter into the flat frame buffer per bucket.
 
+`mc_into` is the whole pass of a frame.  A CUDA frame buffer runs the
+hand-written kernel `csrc/mc.cu`, one launch for every bucket (counted
+in `launches`; the grid is built on the host from `config`, so no device
+value is read); a CPU buffer runs the plain version `_mc_plain`, the
+bucket loop over `_mc_bucket`; nothing else is accepted.
+
 What differs from the JAX version, because torch runs eagerly: a
 bucket holds exactly its lanes (no power-of-two padding); JAX's scatter
 `mode="drop"` becomes a write to a trash slot one past the end of the
-frame buffer; the whole pass runs under the scan's no-sync guard, so on
-a card it only enqueues work.  All math is int32, bit-exact with the JAX
-package.
+frame buffer (the kernel writes only the kept pixels); the whole pass
+runs under the scan's no-sync guard, so on a card it only enqueues work.
+All math is int32, bit-exact with the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +52,15 @@ MC_FIELDS = [
     "w0", "w1", "bshift",
 ]
 _MF = {name: i for i, name in enumerate(MC_FIELDS)}
+
+# launches of the CUDA MC kernel in this process (one per pass with lanes)
+launches = 0
+# the kernel's int64 parameter array (`csrc/mc.cu`, enum Param): pointers,
+# then ints, then per bucket its lane rows, T, compound flag and lanes
+MAX_BUCKETS = 12
+_PARAMS = (["frame", "ref", "ftab", "ref_len", "ref_bytes", "bd", "nb"] +
+           [f"{k}{b}" for k in ("rows", "t", "comp", "n")
+            for b in range(MAX_BUCKETS)])
 
 # all six filter banks as one [6*16, 8] table; lane hf/vf index rows
 _FTAB = np.asarray(T_.SUBPEL_FILTERS, np.int32).reshape(-1, 8)
@@ -123,7 +138,20 @@ def mc_into(frame, ref_flat, lanes, config):
     """All MC lanes of one frame, in place: `frame` is a flat int32
     [n + 1] buffer whose last slot is the trash slot.  ref_flat: packed
     reference planes (uint8 or int32); lanes: {(T, comp): [N, F] int32}
-    on the same device; config: (((T, comp, N), ...), bd)."""
+    on the same device; config: (((T, comp, N), ...), bd).  A CUDA frame
+    runs the kernel, a CPU frame the plain version."""
+    dev = frame.device
+    if dev.type == "cpu":
+        _mc_plain(frame, ref_flat, lanes, config)
+    elif dev.type == "cuda":
+        _mc_kernel(frame, ref_flat, lanes, config)
+    else:
+        raise ValueError(f"mc_into: unsupported device {dev}")
+
+
+def _mc_plain(frame, ref_flat, lanes, config):
+    """The plain version of the pass: `_mc_bucket` for each bucket, on
+    any device (`mc_into`'s arguments)."""
     buckets, bd = config
     n = frame.shape[0] - 1
     ftab, ar = _consts(frame.device)
@@ -131,6 +159,71 @@ def mc_into(frame, ref_flat, lanes, config):
         for (T, comp, _n) in buckets:
             _mc_bucket(frame, n, ref_flat, lanes[(T, comp)], T, comp, bd,
                        ftab, ar)
+
+
+def _mc_kernel(frame, ref_flat, lanes, config):
+    """The pass on the card: one `mc_frame` launch for every bucket with
+    lanes, on the frame's device and its current stream, counted in
+    `launches`.  Raises on inputs the kernel does not take or a failed
+    launch; reads nothing back from the device."""
+    global launches
+    buckets, bd = config
+    buckets = [b for b in buckets if b[2] > 0]
+    if not buckets:
+        return
+    dev = frame.device
+    if len(buckets) > MAX_BUCKETS or bd not in (8, 10, 12):
+        raise ValueError(f"mc_into: {len(buckets)} buckets at {bd} bits, "
+                         f"the kernel takes up to {MAX_BUCKETS} at 8, 10 "
+                         f"or 12")
+    if frame.dtype != torch.int32 or frame.ndim != 1 or \
+            not frame.is_contiguous():
+        raise ValueError("mc_into: the frame must be a flat contiguous "
+                         "int32 buffer")
+    if ref_flat.device != dev or ref_flat.dtype not in (torch.uint8,
+                                                        torch.int32) or \
+            ref_flat.ndim != 1 or not ref_flat.is_contiguous() or \
+            ref_flat.numel() == 0:
+        raise ValueError(f"mc_into: the reference must be flat contiguous "
+                         f"uint8 or int32 on {dev}, got {ref_flat.dtype} "
+                         f"on {ref_flat.device}")
+    for T, comp, n in buckets:
+        rows = lanes[(T, comp)]
+        if T not in (4, 8, 16, 32, 64, 128) or comp not in (0, 1) or \
+                rows.device != dev or rows.dtype != torch.int32 or \
+                tuple(rows.shape) != (n, len(MC_FIELDS)) or \
+                not rows.is_contiguous():
+            raise ValueError(f"mc_into: bucket ({T}, {comp}) must be "
+                             f"contiguous int32 [{n}, {len(MC_FIELDS)}] "
+                             f"lane rows on {dev}")
+    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
+    fn = load_kernel("mc").mc_frame
+    with torch.cuda.device(dev):
+        # the first `_consts` of a device uploads (a synchronising copy),
+        # so the parameters are made before the no-sync guard
+        arr = np.asarray([v.data_ptr() if torch.is_tensor(v) else v for v in
+                          _params(frame, ref_flat, lanes, (buckets, bd))],
+                         np.int64)
+        with _no_device_sync(dev):
+            err = fn(arr.ctypes.data, len(buckets),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mc_frame launch failed: CUDA error {err}")
+    launches += 1
+
+
+def _params(frame, ref_flat, lanes, config):
+    """The kernel's parameters in `_PARAMS` order: tensors where it takes
+    a pointer, ints; a bucket the pass does not have is 0 throughout."""
+    buckets, bd = config
+    params = dict(frame=frame, ref=ref_flat, ftab=_consts(frame.device)[0],
+                  ref_len=ref_flat.shape[0],
+                  ref_bytes=ref_flat.element_size(), bd=bd,
+                  nb=len(buckets))
+    for b, (T, comp, n) in enumerate(buckets):
+        params.update({f"rows{b}": lanes[(T, comp)], f"t{b}": T,
+                       f"comp{b}": comp, f"n{b}": n})
+    return [params.get(k, 0) for k in _PARAMS]
 
 
 def run_mc(frame0, ref_flat, lanes, config):

@@ -207,7 +207,8 @@ def _time_cdef(planes, gates, bd, mesh, iters):
         return bool(flag.item())
     sharded_cdef.exchange_halo_cols_fill = timed
     try:
-        ev, _ = complete_events(call, iters, "cdef_shard_kernel", agree)
+        ev, _, _ = complete_events(call, iters, "cdef_shard_kernel",
+                                   agree)
     finally:
         sharded_cdef.exchange_halo_cols_fill = real
     ev = [e for e in ev if "cdef_shard_kernel" in e.name]

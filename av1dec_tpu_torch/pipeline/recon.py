@@ -9,9 +9,11 @@ NumPy spec model; `InterPredictor` once per inter or intra-bc block),
 residual add, clamp [SPEC §7.11-§7.13].  Two parts run on `device`:
 
 - residuals: every (tx_size, tx_type) bucket without a quantizer matrix
-  goes through `ops/kernels/itx.residual_bucket` (B7), all buckets
-  fetched in one copy (`residuals_device`); lossless, WHT and
-  quantizer-matrix buckets take the NumPy route, as in the reference;
+  goes through B7 (`residuals_device`): all buckets packed into one
+  upload, one `ops/kernels/itx.residuals_packed` call (the kernel
+  `csrc/itx.cu` on a card, `residual_bucket` per bucket on the CPU) and
+  one fetch; lossless, WHT and quantizer-matrix buckets take the NumPy
+  route, as in the reference;
 - CDEF: `ops/kernels/cdef.compute_gates` and `cdef_frame` (the CUDA
   kernel on a card, `_cdef_core` on the CPU), in place on the planes.
 
@@ -31,7 +33,8 @@ import torch
 
 from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
-from av1dec_tpu_torch.ops.kernels.itx import residual_bucket
+from av1dec_tpu_torch.ops.kernels.itx import (pack_buckets,
+                                              residuals_packed)
 from av1dec_tpu_torch.ops.spec import dequant, intra, itx
 from av1dec_tpu_torch.ops.tables_data import AC_Q, DC_Q
 from av1dec_tpu_torch.pipeline.wavefront import _alpha, _palette_pred
@@ -42,26 +45,34 @@ DC_PRED = 0
 UV_CFL_PRED = 13
 
 
-def residuals_device(buckets, bd, device):
-    """Residuals of buckets [(levels [B, n], qidx [B], dc delta [B], ac
-    delta [B], tx_size, tx_type)] through `residual_bucket` on `device`,
-    fetched to the host in one copy: a list of int64 [B, h, w] arrays."""
+def pack_residuals(buckets, bd):
+    """`itx.pack_buckets` of buckets [(levels [B, n], qidx [B], dc delta
+    [B], ac delta [B], tx_size, tx_type)]: each block's DC and AC
+    quantizer from its qindex and deltas.  Returns (buffer, spans,
+    residual words)."""
     bi = dequant._BD_IDX[bd]
-    outs = []
+    packs = []
     for levels, qidx, dcd, acd, tsz, tt in buckets:
         dcq = DC_Q[bi, np.clip(qidx + dcd, 0, 255)].astype(np.int32)
         acq = AC_Q[bi, np.clip(qidx + acd, 0, 255)].astype(np.int32)
-        outs.append(residual_bucket(
-            torch.as_tensor(np.ascontiguousarray(levels, np.int32),
-                            device=device),
-            torch.as_tensor(dcq, device=device),
-            torch.as_tensor(acq, device=device), tsz, tt, bd))
-    host = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
-    res, off = [], 0
-    for o in outs:
-        n = o.numel()
-        res.append(host[off: off + n].reshape(o.shape).astype(np.int64))
-        off += n
+        packs.append((np.asarray(levels).astype(np.int32), dcq, acq, tsz,
+                      tt))
+    return pack_buckets(packs)
+
+
+def residuals_device(buckets, bd, device):
+    """Residuals of `pack_residuals`' buckets on `device`: one packed
+    buffer, one upload, one `itx.residuals_packed` call (one kernel
+    launch on a card) and one fetch.  Returns a list of int64 [B, h, w]
+    arrays."""
+    buf, spans, words = pack_residuals(buckets, bd)
+    host = residuals_packed(torch.as_tensor(buf, device=device), spans,
+                            words, bd).cpu().numpy()
+    res = []
+    for tsz, _, _, B, _, o0 in spans:
+        w, h = TX_DIMS[tsz]
+        res.append(host[o0:o0 + B * w * h].reshape(B, h, w)
+                   .astype(np.int64))
     return res
 
 

@@ -6,9 +6,11 @@ process was idle for a while may hold nothing but its last kernel (on
 an H100 under torch 2.11, most such traces late in `chip_smoke.py`).  So
 `device_events` waits `settle` seconds once the trace has started,
 makes lead calls and launches a marker kernel (`torch.cuda._sleep`),
-then the calls it times and a second marker, and keeps only what lies
-between the two markers; `complete_events` takes the trace again, with
-a longer wait each time, until what it kept is whole.
+then the calls it times and a second marker; `complete_events` keeps
+only what lies between the two markers, and takes the trace again, with
+a longer wait each time, until what it kept is whole.  Where no trace
+is whole, the calls of a named kernel are timed from what the traces
+kept of their end (`tail_events`).
 """
 import time
 
@@ -19,11 +21,9 @@ ATTEMPTS = 10  # traces `complete_events` takes before it gives up
 
 
 def device_events(fn, iters, settle=SETTLE_S):
-    """The device events (kernels and copies) of the last `iters` of
-    `LEAD + iters` calls of fn() in one torch.profiler trace, made
-    `settle` seconds after it started: those that lie between the marker
-    kernels launched before and after them.  None if the trace lost
-    either marker."""
+    """The device events (kernels and copies) of one torch.profiler
+    trace, made `settle` seconds after it started, of `LEAD` calls of
+    fn(), a marker kernel, `iters` calls and a second marker."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -38,8 +38,7 @@ def device_events(fn, iters, settle=SETTLE_S):
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return between_markers([e for e in prof.events()
-                            if e.device_type == DeviceType.CUDA])
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def between_markers(ev):
@@ -54,32 +53,66 @@ def between_markers(ev):
             e.time_range.start >= first and e.time_range.end <= last]
 
 
+def tail_events(ev, name, iters):
+    """The events of `ev` from the start of its last `iters` kernels
+    whose name holds `name` (up to its last marker, where that marker
+    follows them); None unless it holds that many.  Recording starts
+    late, so a trace that lost its first marker keeps the end of what
+    ran: the last calls, each one such kernel.  What ran before the
+    first of those kernels in its call (a copy) is not kept."""
+    named = sorted((e for e in ev if name in e.name),
+                   key=lambda e: e.time_range.start)
+    if len(named) < iters:
+        return None
+    first = named[-iters].time_range.start
+    last = max((e.time_range.start for e in ev if MARKER in e.name),
+               default=None)
+    if last is None or last < named[-1].time_range.end:
+        last = float("inf")
+    return [e for e in ev if MARKER not in e.name and
+            e.time_range.start >= first and e.time_range.end <= last]
+
+
 def complete_events(fn, iters, name=None, agree=None):
-    """(`device_events(fn, iters, settle)` of a trace that lost nothing,
-    the number of traces taken); each trace waits twice as long as the
-    one before, up to 32 x SETTLE_S.
+    """(the events between the markers of a `device_events(fn, iters,
+    settle)` trace that lost nothing, the number of traces taken, True);
+    each trace waits twice as long as the one before, up to 32 x
+    SETTLE_S.
 
     With `name` (fn launches one kernel whose name holds it), a trace is
-    whole when it kept both markers and `iters` such kernels.  Without
-    it, what fn runs is not known beforehand, so a trace is whole when
-    an earlier one kept as many events: a lost record only lowers the
-    count.  Where the calls are collective, `agree(ok)` turns this
-    process's verdict into its group's, so that every rank takes its
-    trace again together.  Raises RuntimeError after ATTEMPTS traces."""
+    whole when it kept both markers and `iters` such kernels; when none
+    of ATTEMPTS traces is whole, the first trace that kept at least
+    `iters` of them gives its `tail_events` instead, and the third value
+    is False.  Without it, what fn runs is not known beforehand, so a
+    trace is whole when an earlier one kept as many events: a lost
+    record only lowers the count.  Where the calls are collective,
+    `agree(ok)` turns this process's verdict into its group's, so that
+    every rank takes its trace again, and falls back, together.  Raises
+    RuntimeError when neither gives events."""
     counts = []
+    tail = None
     for n in range(1, ATTEMPTS + 1):
-        ev = device_events(fn, iters, SETTLE_S * 2 ** min(n - 1, 5))
-        if ev is None:
+        raw = device_events(fn, iters, SETTLE_S * 2 ** min(n - 1, 5))
+        ev = between_markers(raw)
+        if name is not None:
+            ok = ev is not None and sum(name in e.name for e in ev) == iters
+            if not ok and tail is None:
+                tail = tail_events(raw, name, iters)
+        elif ev is None:
             ok = False
-        elif name is not None:
-            ok = sum(name in e.name for e in ev) == iters
         else:
             ok = len(ev) in counts
             counts.append(len(ev))
         if agree is not None:
             ok = agree(ok)
         if ok:
-            return ev, n
+            return ev, n, True
+    if name is not None:
+        ok = tail is not None
+        if agree is not None:
+            ok = agree(ok)
+        if ok:
+            return tail, ATTEMPTS, False
     what = f"{iters} {name} kernels" if name else \
         f"as many events twice (counts {counts})"
     raise RuntimeError(f"the profiler lost records in each of {ATTEMPTS} "

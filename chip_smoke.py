@@ -38,11 +38,20 @@ Phases (each raises on failure, so the script exits non-zero):
      plain version's time and the bound (bytes, operations, and the
      chain term: the device time of `wavefront_scan_floor`, the same
      tickets, waits and publishes with no pixel work);
-   and B7, the
-   device residuals (`ops/kernels/itx.residual_bucket`, plain torch),
-   byte-equal on the card to its CPU run and to the NumPy spec model on
-   every valid (tx_size, tx_type) at 8 and 10 bits, and to its CPU run
-   on extreme levels, where both wrap in int32;
+   - `mc` (the MC pass, one launch for every bucket of a frame) against
+     `_mc_plain`, byte-equal, MC_REPEATS runs each, the trash slot
+     never written: seeded lanes of every T from 4 to 128, single-list,
+     average and distance-weighted compound, past every edge of the
+     reference, partial w x h, at 8 bits (uint8 and int32 references),
+     10 and 12 bits (the real lanes of a 1080p inter and compound frame
+     in phases 5 and 8a, where their decodes capture them);
+   - `itx` (B7, the device residuals: every block of a call in one
+     launch, from `itx.pack_buckets`' buffer) against the plain route
+     on the card (`_residuals_plain`: `residual_bucket` a bucket), its
+     CPU run and the NumPy spec model, on every valid (tx_size,
+     tx_type) at 8, 10 and 12 bits, one call a bit depth, ITX_REPEATS
+     runs; on extreme levels, where the plain route wraps in int32,
+     against the plain route and its CPU run;
 3. main path: `decode_stream_batched(device="cuda")` on the committed
    1080p 8-frame all-intra stream: every frame's MD5 against the
    committed manifest, one `cdef_frame` launch per frame with CDEF on
@@ -61,9 +70,11 @@ Phases (each raises on failure, so the script exits non-zero):
    mode "error"), one `cdef_frame` launch per frame with CDEF on and no
    `cdef_filter` launch; then a warm timed pass (fps, mean key-frame and
    inter-frame ms, host InterPlan ms) and, on one inter frame's real
-   lanes, the MC pass's device time (torch.profiler: every device
-   interval of one `mc_into` call on the scan's buffer, as the decoder
-   makes it, no host cost), its kernel count, its wrapper-inclusive time
+   lanes (checked disjoint, and the kernel byte-equal to `_mc_plain`
+   on them, MC_REPEATS runs), the MC pass's device time (torch.profiler:
+   every device interval of one `mc_into` call on the scan's buffer, as
+   the decoder makes it, no host cost), its kernel count, the kernel's
+   own interval, its wrapper-inclusive time, the plain version's time
    and its bound;
 6. host pixel path: `api.Decoder(device="cuda")` on the committed 1080p
    stream of the host path (1 key frame on the device path, 7 inter
@@ -76,10 +87,11 @@ Phases (each raises on failure, so the script exits non-zero):
    ms split by stage: residuals, block walk, the NumPy filters and CDEF,
    on the host clock) and, for the last host
    frame's residual buckets, B7's device time (torch.profiler: every
-   device interval of one `residuals_device` call, uploads and fetch
-   included, no host cost), its kernel count, its wrapper-inclusive
-   time, the NumPy route's time on the same buckets (with which it is
-   held equal) and its bytes bound;
+   device interval of one `residuals_device` call, upload and fetch
+   included, no host cost), its kernel count, the `itx` kernel's own
+   interval, its wrapper-inclusive time (packing included), the NumPy
+   route's time on the same buckets (with which it is held equal), the
+   plain route's on the card and its bound (bytes and operations);
 7. state and scale-out:
    a. checkpoint: during phase 5's checked pass, `Decoder.save_state()`
       after TU 4; a fresh `Decoder(device="cuda")` loads it and decodes
@@ -110,8 +122,8 @@ Phases (each raises on failure, so the script exits non-zero):
       path, the compound MC lanes counted (at least 1), one `cdef_frame`
       launch per frame with CDEF on; then a warm timed pass
       (`fps_1080p_compound`, mean key- and inter-frame ms) and the MC
-      pass of the last frame with compound lanes (device ms, kernels,
-      wrapper ms, bound), as in 5;
+      pass of the last frame with compound lanes (checked as in 5;
+      device, kernel, wrapper and plain ms, bound), as in 5;
    b. the key frame of the cq-40 host stream on the device path, its
       Wiener restoration on the device, against the manifest;
    c. `decode_stream_batched` on `screen`'s TU 0, an intra block copy
@@ -130,16 +142,22 @@ Phases (each raises on failure, so the script exits non-zero):
 
 Every decode of phases 3-8 holds the scan kernel's launches equal to
 the scans with lanes it ran, and the levels their counters report
-complete equal to those scans' levels with lanes (`ScanLevels`; in 7b
+complete equal to those scans' levels with lanes (`Launches`; in 7b
 each GOP worker frame's `Decoder.stats` `scan_launches` and
 `scan_levels`, in 7d each rank's, against the levels of the frame it
-scanned): every scan ran on the kernel, to its last level.
+scanned): every scan ran on the kernel, to its last level; and the MC
+kernel's launches equal to the MC passes with lanes, the residual
+kernel's to the host frames with device buckets, with no plain MC pass
+or plain residual call on the card.
 The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
 8a-c and 8e for `cdef_frame` (36), and phase 7's checked calls (counted
 in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
 (2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` the
 launches of every checked scan of phases 3-8 in this process (3, 4, 5
-and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch).
+and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch),
+and for `mc` and `itx` their launches in every checked decode of phases
+3-8 (their times: `mc` on the inter stream's frame 7, phase 5, `itx` on
+the host stream's last host frame, phase 6).
 `cdef_frame`'s times there are phase 2's (1080p 4:2:0, random all-tap
 strengths); `cdef_filter`'s are those of its `Decoder`-path launch,
 shard 0 of 2 in 8d (luma pad 1084x964, chroma pads 544x484), and its
@@ -210,6 +228,10 @@ SCAN_CFL_OPS_PER_PX = 14
 # phase 2: runs of the scan kernel on each checked batch, each
 # byte-compared with the plain scan
 SCAN_REPEATS = 50
+# runs of the MC kernel on each checked pass and of the residual kernel
+# on each checked call, each byte-compared with its plain version
+MC_REPEATS = 10
+ITX_REPEATS = 10
 # (subx, suby) of each chroma format; None is mono
 FORMATS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "mono": None}
 GATES = ("mixed", "zero", "pri_only", "sec_only", "all_taps")
@@ -256,30 +278,38 @@ def cuda_ms(fn, iters):
 def _device_events(fn, iters, name=None):
     """torch.profiler's device intervals of `iters` warm calls of fn()
     from a trace that lost no record (`profiling.complete_events`: with
-    `name`, it holds `iters` kernels whose name holds it); a trace taken
-    again is logged.  Raises when every trace lost records."""
+    `name`, it holds `iters` kernels whose name holds it; where no trace
+    was whole, the last `iters` such kernels a trace kept and what
+    followed them); a trace taken again, and such a fallback, are
+    logged.  Raises when every trace lost records."""
     from av1dec_tpu_torch.profiling import complete_events
-    ev, traces = complete_events(fn, iters, name)
-    if traces > 1:
+    ev, traces, whole = complete_events(fn, iters, name)
+    if not whole:
+        log(f"profiler: no whole trace of {iters} calls in {traces}; the "
+            f"last {iters} {name} kernels of a trace that lost its first "
+            f"marker, and what followed them")
+    elif traces > 1:
         log(f"profiler: {traces} traces of {iters} calls for one whole "
             f"trace{f' of {name}' if name else ''}")
     return ev
 
 
-def device_ms(fn, iters):
-    """(mean device milliseconds, kernels) per fn() call: every device
-    interval (kernels and copies), so no host cost is counted."""
-    ev = _device_events(fn, iters)
+def traced(fn, name, iters):
+    """(ms of every device interval, kernels, ms of the kernels named
+    `name`) per fn() call, from one trace that holds `iters` such
+    kernels (no host cost counted)."""
+    ev = _device_events(fn, iters, name)
     kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
-    return (sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters,
-            len(kernels) / iters)
+
+    def ms(evs):
+        return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
+    return ms(ev), len(kernels) / iters, ms(e for e in ev if name in e.name)
 
 
 def kernel_ms(fn, name, iters):
     """Mean device milliseconds, per fn() call, of the kernels whose name
     holds `name` (no host cost counted); fn() launches one such kernel."""
-    ev = [e for e in _device_events(fn, iters, name) if name in e.name]
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    return traced(fn, name, iters)[2]
 
 
 def bound_terms(int_rate, nbytes, ops, int8_ops=0):
@@ -754,48 +784,79 @@ def phase_scan(manifest, dev, int_rate):
     return out
 
 
-# the scan kernel's launches in each checked `ScanLevels` block, in
-# order: its launches on the main paths
+# each checked `Launches` block's launches of the scan, MC and residual
+# kernels, in order: their launches on the main paths
 MAIN_SCANS = []
+MAIN_MC = []
+MAIN_ITX = []
 
 
-class ScanLevels:
+class Launches:
     """Inside `with`: counts the scans that go through
     `device_recon.scan_into`, those with lanes and their levels with
     lanes (from the lanes each is given), keeping each launch's counter
-    buffer; on leaving, holds the scan kernel's launches
+    buffer; the MC passes that go through `device_recon.mc_into` with
+    lanes; the `recon.residuals_device` calls with blocks (a host frame's
+    device buckets); and the calls of the plain MC pass and the plain
+    residuals on a card.  On leaving, holds the scan kernel's launches
     (`wavefront.launches`, set to 0 on entry) equal to the scans with
-    lanes, and the levels their counters report complete equal to those
-    levels: every scan ran on the kernel, to its last level."""
+    lanes and the levels their counters report complete equal to those
+    levels, the MC kernel's (`mc.launches`) equal to the passes with
+    lanes, the residual kernel's (`itx.launches`) equal to the calls with
+    blocks, and no plain call on the card: every scan, MC pass and
+    residual call ran on its kernel, one launch each."""
 
     def __init__(self, what):
         self.what = what
         self.levels = self.scans = self.with_lanes = 0
+        self.passes = self.host_frames = self.plain_on_card = 0
         self.counters = []
 
     def __enter__(self):
-        from av1dec_tpu_torch.ops.kernels import wavefront
-        from av1dec_tpu_torch.pipeline import device_recon
-        self.real = device_recon.scan_into
+        from av1dec_tpu_torch.ops.kernels import itx, mc, wavefront
+        from av1dec_tpu_torch.pipeline import device_recon, recon
+        self.real = {(device_recon, "scan_into"): device_recon.scan_into,
+                     (device_recon, "mc_into"): device_recon.mc_into,
+                     (recon, "residuals_device"): recon.residuals_device,
+                     (mc, "_mc_plain"): mc._mc_plain,
+                     (itx, "_residuals_plain"): itx._residuals_plain}
+        real = {name: fn for (_, name), fn in self.real.items()}
 
-        def counted(*args):
+        def scan_into(*args):
             levels = int((args[6][1] > 0).sum())
             self.levels += levels
             self.scans += 1
             self.with_lanes += levels > 0
             before = wavefront.launches
-            out = self.real(*args)
+            out = real["scan_into"](*args)
             if wavefront.launches > before:
                 self.counters.append(wavefront.last_scan)
             return out
-        device_recon.scan_into = counted
-        wavefront.launches = 0
+
+        def mc_into(*args):
+            self.passes += any(n for _, _, n in args[3][0])
+            return real["mc_into"](*args)
+
+        def residuals_device(*args):
+            self.host_frames += sum(len(b[0]) for b in args[0]) > 0
+            return real["residuals_device"](*args)
+
+        def plain(name):
+            def call(*args):
+                self.plain_on_card += args[0].is_cuda
+                return real[name](*args)
+            return call
+        for (mod, name), fn in zip(self.real, (
+                scan_into, mc_into, residuals_device, plain("_mc_plain"),
+                plain("_residuals_plain"))):
+            setattr(mod, name, fn)
+        wavefront.launches = mc.launches = itx.launches = 0
         return self
 
     def __exit__(self, kind, *_):
-        from av1dec_tpu_torch.ops.kernels import wavefront
-        from av1dec_tpu_torch.pipeline import device_recon
-        device_recon.scan_into = self.real
+        from av1dec_tpu_torch.ops.kernels import itx, mc, wavefront
+        for (mod, name), fn in self.real.items():
+            setattr(mod, name, fn)
         if kind is None:
             torch.cuda.synchronize()
             done = sum(map(wavefront.levels_completed, self.counters))
@@ -806,13 +867,26 @@ class ScanLevels:
                     f"{wavefront.launches} != {self.with_lanes} scans with "
                     f"lanes of {self.scans}, or levels complete {done} != "
                     f"{self.levels} levels with lanes")
+            if mc.launches != self.passes or \
+                    itx.launches != self.host_frames or self.plain_on_card:
+                raise AssertionError(
+                    f"{self.what}: mc launches {mc.launches} != "
+                    f"{self.passes} MC passes with lanes, or itx launches "
+                    f"{itx.launches} != {self.host_frames} host frames "
+                    f"with device buckets, or {self.plain_on_card} plain "
+                    f"MC or residual calls on the card")
             MAIN_SCANS.append(wavefront.launches)
+            MAIN_MC.append(mc.launches)
+            MAIN_ITX.append(itx.launches)
         return False
 
     def __str__(self):
         return (f"wavefront_scan launches {self.with_lanes} = scans with "
                 f"lanes of {self.scans}, their counters reporting all "
-                f"{self.levels} levels with lanes complete")
+                f"{self.levels} levels with lanes complete; mc launches "
+                f"{self.passes} = MC passes with lanes; itx launches "
+                f"{self.host_frames} = host frames with device buckets; "
+                f"no plain MC or residual call on the card")
 
 
 def frame_levels(name, count):
@@ -873,7 +947,7 @@ def phase_main_path(manifest, dev, int_rate):
 
     cdef.launches = cdef.frame_launches = 0
     t0 = time.perf_counter()
-    with ScanLevels("main path") as scans:
+    with Launches("main path") as scans:
         out = decode_stream_batched(datas, device=dev, batch=4)
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
@@ -929,7 +1003,7 @@ def phase_entry_point(manifest, dev):
     names = sorted(n for n in manifest if n not in BIGS)
     n_cdef = n_host = 0
     cdef.launches = cdef.frame_launches = 0
-    with ScanLevels("small streams") as scans:
+    with Launches("small streams") as scans:
         for name in names:
             dec = Decoder(DecoderConfig(), device=dev)
             got = []
@@ -974,11 +1048,98 @@ def mc_work(ref_flat, lanes, cfg):
     return nbytes, ops, n_lanes, px
 
 
+def lanes_disjoint(lanes, what):
+    """Raises unless no two MC lanes write the same pixel: the kernel's
+    blocks run in no order."""
+    from torch_port_helpers import mc_lane_pixels
+    px = mc_lane_pixels(lanes)
+    if len(np.unique(px)) != len(px):
+        raise AssertionError(f"{what}: MC lanes write a pixel twice")
+
+
+def check_mc(frame, ref_flat, lanes, cfg, what, repeats=MC_REPEATS):
+    """`mc_into` on the card (the kernel, one launch a pass) `repeats`
+    times from the same buffer, each run byte-equal to the plain
+    `_mc_plain` on it and the trash slot unwritten; returns its
+    launches."""
+    from av1dec_tpu_torch.ops.kernels import mc
+    ref = frame.clone()
+    mc._mc_plain(ref, ref_flat, lanes, cfg)
+    launched = 0
+    for run in range(repeats):
+        got = frame.clone()
+        before = mc.launches
+        mc.mc_into(got, ref_flat, lanes, cfg)
+        launched += mc.launches - before
+        torch.cuda.synchronize()
+        err = int((got[:-1] - ref[:-1]).abs().max())
+        if err or launched != run + 1 or int(got[-1]) != int(frame[-1]):
+            raise AssertionError(
+                f"mc kernel != plain at {what}, run {run + 1} of {repeats}: "
+                f"max abs err {err}, {launched} launches, trash slot "
+                f"{int(got[-1])} (was {int(frame[-1])})")
+    return launched
+
+
+def phase_mc(dev):
+    """2 (MC): the MC kernel against `_mc_plain` on the card, byte-equal,
+    MC_REPEATS runs each, on seeded lanes of every T from 4 to 128,
+    single-list, average and distance-weighted compound, motion vectors
+    past every edge of the reference and partial w x h windows, at 8
+    bits (uint8 and int32 references), 10 and 12 bits.  (The real lanes
+    of BIG_INTER's frame 7 and of BIG_COMPOUND's last compound frame are
+    checked where their decodes capture them, phases 5 and 8a.)"""
+    from torch_port_helpers import seeded_mc_lanes
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    launches = n = 0
+    for bd, dt in ((8, torch.uint8), (8, torch.int32), (10, torch.int32),
+                   (12, torch.int32)):
+        frame0, pieces, lanes = seeded_mc_lanes(
+            bd, np.random.default_rng(100 + bd))
+        cfg, rows = upload_lanes(lanes, bd, dev)
+        if len(cfg[0]) != 12:
+            raise AssertionError(f"seeded lanes fill {len(cfg[0])} buckets")
+        lanes_disjoint(rows, f"seeded lanes, {bd}-bit")
+        frame = torch.as_tensor(np.append(frame0, -7).astype(np.int32),
+                                device=dev)
+        launches += check_mc(frame, pack_ref_flat(pieces, dev).to(dt), rows,
+                             cfg, f"seeded lanes, {bd}-bit, {dt} reference")
+        n += sum(b[2] for b in cfg[0])
+    log(f"kernel mc: byte-equal to _mc_plain on {n} seeded lanes (every T "
+        f"4-128, single, average and distance-weighted compound, past "
+        f"every edge, partial windows; 8-bit uint8 and int32 references, "
+        f"10 and 12 bits), {MC_REPEATS} runs each; {launches} launches, one "
+        f"a run; the trash slot never written; max abs err 0")
+
+
+def time_mc(frame, ref_flat, lanes, cfg, int_rate):
+    """The MC kernel on one pass: every device interval and kernel of an
+    `mc_into` call, its kernel interval, its wrapper-inclusive ms, the
+    plain version's ms on the same inputs and the bound."""
+    from av1dec_tpu_torch.ops.kernels import mc
+
+    def run():
+        mc.mc_into(frame, ref_flat, lanes, cfg)
+    d_ms, n_k, k = traced(run, "mc_kernel", 20)
+    nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
+    terms = bound_terms(int_rate, nbytes, ops)
+    return {"lanes": n_lanes, "pixels": px, "buckets": len(cfg[0]),
+            "device_ms": d_ms, "kernels": n_k, "kernel_ms": k,
+            "wrapper_ms": cuda_ms(run, 20),
+            "plain_ms": cuda_ms(lambda: mc._mc_plain(frame, ref_flat, lanes,
+                                                     cfg), 5),
+            **terms, "share_of_bound": terms["bound_ms"] / k,
+            "card": card_line()}
+
+
 def phase_inter(manifest, dev, int_rate):
+    """5 (with 7a); returns the `cdef_frame` launches of the checked pass
+    and the MC kernel's entry: its times on the last inter frame."""
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.config import DecoderConfig
     from av1dec_tpu_torch.container import read_ivf
-    from av1dec_tpu_torch.ops.kernels import cdef, mc
+    from av1dec_tpu_torch.ops.kernels import cdef
     from av1dec_tpu_torch.pipeline import device_recon
     datas = [d for _, d in read_ivf(os.path.join(TESTDATA,
                                                  BIG_INTER + ".ivf"))]
@@ -1001,7 +1162,7 @@ def phase_inter(manifest, dev, int_rate):
 
     cdef.launches = cdef.frame_launches = 0
     t0 = time.perf_counter()
-    with ScanLevels("inter path") as scans:
+    with Launches("inter path") as scans:
         got, stats = decode(save_at=CHECKPOINT_TU)
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
@@ -1020,7 +1181,7 @@ def phase_inter(manifest, dev, int_rate):
         f"device path (MC pass and scan under sync debug mode 'error'); "
         f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
         f"cdef_filter launches 0; {scans}; first pass {t_first:.3f} s")
-    with ScanLevels("checkpoint resume"):
+    with Launches("checkpoint resume"):
         phase_checkpoint(datas, want, saved, dev)
 
     t0 = time.perf_counter()
@@ -1051,20 +1212,18 @@ def phase_inter(manifest, dev, int_rate):
         device_recon.mc_into = real
     frame, ref_flat, lanes, cfg = seen[-1]
     frame = frame.clone()
-
-    def run():
-        mc.mc_into(frame, ref_flat, lanes, cfg)
-    k_ms, n_k = device_ms(run, 20)
-    w_ms = cuda_ms(run, 20)
-    nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
-    b, by = bound(int_rate, nbytes, ops)
+    what = f"{BIG_INTER} frame {len(stats) - 1}"
+    lanes_disjoint(lanes, what)
+    check_mc(frame, ref_flat, lanes, cfg, what)
+    out = time_mc(frame, ref_flat, lanes, cfg, int_rate)
     log(json.dumps({"mc_pass": {
-        "frame": len(stats) - 1, "lanes": n_lanes, "pixels": px,
-        "buckets": len(cfg[0]), "device_ms": k_ms, "kernels": n_k,
-        "wrapper_ms": w_ms, "inter_plan_ms": stats[-1]["inter_plan_ms"],
-        "bound_ms": b, "bound_by": by, "bytes": nbytes, "int32_ops": ops,
-        "card": card_line()}}))
-    return launches
+        "frame": len(stats) - 1, **out,
+        "inter_plan_ms": stats[-1]["inter_plan_ms"]}}))
+    log(f"kernel mc: byte-equal to _mc_plain on the real lanes of {what}, "
+        f"{MC_REPEATS} runs; the lanes write disjoint pixels")
+    out["ms"] = out["kernel_ms"]
+    out["max_abs_err"] = 0
+    return launches, out
 
 
 def phase_checkpoint(datas, want, saved, dev):
@@ -1097,16 +1256,23 @@ def phase_checkpoint(datas, want, saved, dev):
 
 
 def phase_b7(dev):
-    """B7 on the card == its CPU run and the NumPy spec model."""
+    """2 (B7): the residual kernel (`itx.residuals_packed` on the card, one
+    launch a call) on every valid (tx_size, tx_type) at 8, 10 and 12
+    bits, all packed into one call a bit depth and kind of levels,
+    ITX_REPEATS runs, byte-equal to the plain route on the card
+    (`_residuals_plain`, `residual_bucket` a bucket) and to its CPU run;
+    on conformant levels also to the NumPy spec model; on extreme levels,
+    where the plain route wraps in int32, to the CPU run."""
     from av1dec_tpu_torch.ops.kernels import itx
     from av1dec_tpu_torch.ops.spec import dequant
     from av1dec_tpu_torch.ops.spec import itx as S
     from av1dec_tpu_torch.ops.tables_data import AC_Q, DC_Q
     rng = np.random.default_rng(7)
     cases = itx.valid_transforms()
-    n = 0
-    for bd in (8, 10):
-        bi = {8: 0, 10: 1}[bd]
+    n = launches = 0
+    for bd in (8, 10, 12):
+        bi = dequant._BD_IDX[bd]
+        kinds = {"spec": ([], []), "extreme": ([], None)}
         for tsz, tt in cases:
             w, h = S.TX_DIMS[tsz]
             m = min(w, 32) * min(h, 32)
@@ -1117,53 +1283,104 @@ def phase_b7(dev):
             dcq = DC_Q[bi, np.clip(qidx + dcd, 0, 255)].astype(np.int32)
             acq = AC_Q[bi, np.clip(qidx + acd, 0, 255)].astype(np.int32)
             # a conformant range: sparse levels whose dequantized values
-            # stay within 2^(bd+6) at DC and 2^(bd+3) elsewhere, so that
-            # no intermediate leaves int32
-            lim = np.maximum(1, (1 << (bd + 3)) // acq)[:, None]
+            # stay within 2^(e+6) at DC and 2^(e+3) elsewhere, e =
+            # min(bd, 11), so that no intermediate leaves int32 (at 12 bits
+            # a DC past 2^17 takes an identity-16 row past the 8 + BitDepth
+            # bits a conformant stream keeps [SPEC §7.13.3], and its int32
+            # product wraps)
+            e = min(bd, 11)
+            lim = np.maximum(1, (1 << (e + 3)) // acq)[:, None]
             levels = np.floor(rng.uniform(-1, 1, (B, m)) * (lim + 1))
             levels[:, 0] = np.floor(rng.uniform(-1, 1, B) *
-                                    np.maximum(1, (1 << (bd + 6)) // dcq))
+                                    np.maximum(1, (1 << (e + 6)) // dcq))
             levels = levels.astype(np.int64)
             levels[rng.random(levels.shape) < 0.6] = 0
-            spec = S.inverse_transform_lanes(
+            kinds["spec"][0].append((levels.astype(np.int32), dcq, acq,
+                                     tsz, tt))
+            kinds["spec"][1].append(S.inverse_transform_lanes(
                 dequant.dequant_batch(levels, tsz, qidx, bd, dcd, acd),
-                tsz, tt, bd)
+                tsz, tt, bd))
             # and extreme levels, where int32 wraps on both devices
             wild = rng.integers(-(1 << 20), (1 << 20) + 1, (B, m))
-            for kind, lv, want in (("spec", levels, spec),
-                                   ("extreme", wild, None)):
-                args = [torch.as_tensor(a.astype(np.int32))
-                        for a in (lv, dcq, acq)]
-                cpu = itx.residual_bucket(*args, tsz, tt, bd).numpy()
-                got = itx.residual_bucket(*[a.to(dev) for a in args], tsz,
-                                          tt, bd).cpu().numpy()
-                if not np.array_equal(got, cpu) or \
-                        (want is not None and not np.array_equal(got, want)):
-                    raise AssertionError(
-                        f"B7 on the card differs at tx_size {tsz} tx_type "
-                        f"{tt}, {bd}-bit, {kind} levels")
-            n += 1
-    log(f"B7 residual_bucket: byte-equal on the card to its CPU run and to "
-        f"the NumPy spec on {n} (tx_size, tx_type, bit depth) cases (every "
-        f"valid transform at 8 and 10 bits), and to its CPU run on extreme "
-        f"levels")
+            kinds["extreme"][0].append((wild.astype(np.int32), dcq, acq,
+                                        tsz, tt))
+        for kind, (buckets, spec) in kinds.items():
+            buf, spans, words = itx.pack_buckets(buckets)
+            cpu = itx.residuals_packed(torch.as_tensor(buf), spans, words,
+                                       bd)
+            dbuf = torch.as_tensor(buf, device=dev)
+            plain = itx._residuals_plain(dbuf, spans, words, bd).cpu()
+            bad = not torch.equal(plain, cpu)
+            for run in range(ITX_REPEATS):
+                before = itx.launches
+                got = itx.residuals_packed(dbuf, spans, words, bd).cpu()
+                launches += itx.launches - before
+                bad = bad or itx.launches != before + 1 or \
+                    not torch.equal(got, cpu)
+            if spec is not None:
+                flat = got.numpy()
+                for (tsz, tt, _, Bk, _, o0), want in zip(spans, spec):
+                    w, h = S.TX_DIMS[tsz]
+                    bad = bad or not np.array_equal(
+                        flat[o0:o0 + Bk * w * h].reshape(Bk, h, w), want)
+            if bad:
+                raise AssertionError(f"B7 at {bd} bits, {kind} levels: the "
+                                     f"kernel, the plain route on the card, "
+                                     f"its CPU run or the NumPy spec differ")
+        n += len(cases)
+    log(f"kernel itx: byte-equal to the plain route on the card, to its CPU "
+        f"run and to the NumPy spec on {n} (tx_size, tx_type, bit depth) "
+        f"cases (every valid transform at 8, 10 and 12 bits, one call a bit "
+        f"depth), and to the plain route and its CPU run on extreme levels; "
+        f"{ITX_REPEATS} runs each, {launches} launches, one a call; max abs "
+        f"err 0")
 
 
-def residual_work(buckets):
-    """(bytes, blocks) of one `residuals_device` call: the levels and the
-    two quantizers of each block read once (int32), its residual written
-    once (int32)."""
+class _Ops:
+    """An int32 operand that counts the operations done on it."""
+    n = 0
+
+    def _op(self, *_):
+        _Ops.n += 1
+        return self
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+    __rshift__ = __neg__ = _op
+
+
+def transform_ops(kind, n):
+    """int32 operations of one n-point 1-D transform of the spec model
+    (kind 0 DCT, 1 ADST, 2 identity): its adds, multiplies and shifts."""
     from av1dec_tpu_torch.ops.spec import itx as S
-    nbytes = blocks = 0
-    for levels, _, _, _, tsz, _ in buckets:
+    _Ops.n = 0
+    S._apply_1d(kind, [_Ops() for _ in range(n)], n)
+    return _Ops.n
+
+
+def residual_work(buf, spans):
+    """(bytes, int32 operations, blocks) of one packed B7 call: the packed
+    buffer (descriptors and levels) read once, the int32 residuals
+    written once; per coded level the dequantizer (abs, multiply, mask,
+    shift, sign, clamp: 7), per pixel the rectangular scale where it
+    applies (3), the row and column clamps (4) and the row and final
+    roundings (2 each), and each row's and column's 1-D transform."""
+    from av1dec_tpu_torch.ops.spec import itx as S
+    nbytes = buf.nbytes
+    ops = blocks = 0
+    for tsz, tt, _, B, _, _ in spans:
         w, h = S.TX_DIMS[tsz]
-        B = levels.shape[0]
-        nbytes += 4 * (levels.size + 2 * B + B * w * h)
+        ck, rk, _, _ = S.TX_1D[tt]
+        rect = (w.bit_length() - h.bit_length()) % 2
+        per = (7 * min(w, 32) * min(h, 32) + w * h * (3 * rect + 8) +
+               h * transform_ops(rk, w) + w * transform_ops(ck, h))
+        ops += B * per
+        nbytes += 4 * B * w * h
         blocks += B
-    return nbytes, blocks
+    return int(nbytes), int(ops), blocks
 
 
-def phase_host(manifest, dev):
+def phase_host(manifest, dev, int_rate):
+    """6; returns the `cdef_frame` launches of the checked pass and the
+    residual kernel's entry: its times on the last host frame."""
     from av1dec_tpu_torch.api import Decoder
     from av1dec_tpu_torch.container import read_ivf
     from av1dec_tpu_torch.ops.kernels import cdef
@@ -1193,7 +1410,7 @@ def phase_host(manifest, dev):
     recon.residuals_device = keep
     t0 = time.perf_counter()
     try:
-        with ScanLevels("host path") as scans:
+        with Launches("host path") as scans:
             got, stats = decode()
     finally:
         recon.residuals_device = real
@@ -1260,11 +1477,12 @@ def phase_host(manifest, dev):
                     "card": card_line()}))
 
     # B7 on the last host frame's buckets, as FrameRecon gives them
+    from av1dec_tpu_torch.ops.kernels import itx as K
     buckets, bd, _ = seen[-1]
 
     def run():
         return recon.residuals_device(buckets, bd, dev)
-    k_ms, n_k = device_ms(run, 5)
+    d_ms, n_k, k_ms = traced(run, "itx_kernel", 20)
     out = run()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -1283,15 +1501,21 @@ def phase_host(manifest, dev):
     for _ in range(3):
         numpy_route()
     np_ms = (time.perf_counter() - t0) * 1e3 / 3
-    nbytes, blocks = residual_work(buckets)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(json.dumps({"residuals": {
-        "frame": len(stats) - 1 - paths[::-1].index("host"),
-        "buckets": len(buckets), "blocks": blocks, "device_ms": k_ms,
-        "kernels": n_k, "wrapper_ms": w_ms, "numpy_ms": np_ms,
-        "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes,
-        "card": card_line()}}))
-    return launches
+    buf, spans, words = recon.pack_residuals(buckets, bd)
+    dbuf = torch.as_tensor(buf, device=dev)
+    p_ms = cuda_ms(lambda: K._residuals_plain(dbuf, spans, words, bd), 3)
+    nbytes, ops, blocks = residual_work(buf, spans)
+    terms = bound_terms(int_rate, nbytes, ops)
+    entry = {"frame": len(stats) - 1 - paths[::-1].index("host"),
+             "buckets": len(buckets), "blocks": blocks, "device_ms": d_ms,
+             "kernels": n_k, "kernel_ms": k_ms, "wrapper_ms": w_ms,
+             "numpy_ms": np_ms, "plain_ms": p_ms, **terms,
+             "share_of_bound": terms["bound_ms"] / k_ms,
+             "card": card_line()}
+    log(json.dumps({"residuals": entry}))
+    entry["ms"] = k_ms
+    entry["max_abs_err"] = 0
+    return launches, entry
 
 
 def phase_scale_out(manifest, dev, int_rate, frame0):
@@ -1439,7 +1663,7 @@ def phase_compound(manifest, dev, int_rate):
     """8a: compound frames at 1080p through `Decoder(device="cuda")`;
     returns the `cdef_frame` launches of the checked pass."""
     from av1dec_tpu_torch.api import Decoder
-    from av1dec_tpu_torch.ops.kernels import cdef, mc
+    from av1dec_tpu_torch.ops.kernels import cdef
     from av1dec_tpu_torch.pipeline import device_recon
     datas = read_tus(BIG_COMPOUND)
     want = manifest[BIG_COMPOUND]["frames"]
@@ -1464,7 +1688,7 @@ def phase_compound(manifest, dev, int_rate):
     device_recon.mc_into = keep
     t0 = time.perf_counter()
     try:
-        with ScanLevels("compound") as scans:
+        with Launches("compound") as scans:
             got, stats = decode()
     finally:
         device_recon.mc_into = real
@@ -1507,18 +1731,15 @@ def phase_compound(manifest, dev, int_rate):
     last = max(i for i, c in enumerate(comp) if c)
     frame, ref_flat, lanes, cfg = seen[last]
     frame = frame.clone()
-
-    def run():
-        mc.mc_into(frame, ref_flat, lanes, cfg)
-    k_ms, n_k = device_ms(run, 20)
-    w_ms = cuda_ms(run, 20)
-    nbytes, ops, n_lanes, px = mc_work(ref_flat, lanes, cfg)
-    b, by = bound(int_rate, nbytes, ops)
+    what = f"{BIG_COMPOUND} MC pass {last}"
+    lanes_disjoint(lanes, what)
+    check_mc(frame, ref_flat, lanes, cfg, what)
     log(json.dumps({"mc_pass_compound": {
-        "mc_pass": last, "lanes": n_lanes, "compound_lanes": comp[last],
-        "pixels": px, "buckets": len(cfg[0]), "device_ms": k_ms,
-        "kernels": n_k, "wrapper_ms": w_ms, "bound_ms": b, "bound_by": by,
-        "bytes": nbytes, "int32_ops": ops, "card": card_line()}}))
+        "mc_pass": last, "compound_lanes": comp[last],
+        **time_mc(frame, ref_flat, lanes, cfg, int_rate)}}))
+    log(f"kernel mc: byte-equal to _mc_plain on the real lanes of {what} "
+        f"(the last with compound lanes), {MC_REPEATS} runs; the lanes "
+        f"write disjoint pixels")
     return launches
 
 
@@ -1541,7 +1762,7 @@ def phase_wiener(manifest, dev):
     api.DeviceRecon = Keep
     t0 = time.perf_counter()
     try:
-        with ScanLevels("cq-40 key frame") as scans:
+        with Launches("cq-40 key frame") as scans:
             dec = api.Decoder(device=dev)
             got = [f.display_md5() for f in dec.decode(datas[0])]
             dec.close()
@@ -1577,7 +1798,7 @@ def phase_batched_host(manifest, dev):
     parser.close()
     cdef.launches = cdef.frame_launches = 0
     tm = {}
-    with ScanLevels("batched host frame") as scans:
+    with Launches("batched host frame") as scans:
         out = decode_stream_batched(datas, device=dev, batch=4, timings=tm)
     check_launches(cdef, cdef_frames(datas), "batched host frame")
     got = display_md5(out[0], seq["bit_depth"], hdr["upscaled_width"],
@@ -1651,7 +1872,7 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
         before = sharded_cdef.local_frames
         sharded_cdef.local_devices = lambda d: [dev, dev]
         try:
-            with ScanLevels("space_shards=2, the card twice"):
+            with Launches("space_shards=2, the card twice"):
                 got = decode()
         finally:
             sharded_cdef.local_devices = real_devices
@@ -1677,7 +1898,7 @@ def phase_space_shards(manifest, dev, int_rate, frame0):
     logger.addHandler(handler)
     cdef.launches = cdef.frame_launches = 0
     try:
-        with ScanLevels("space_shards=2, one card"):
+        with Launches("space_shards=2, one card"):
             got = decode()
     finally:
         logger.removeHandler(handler)
@@ -1727,7 +1948,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, _REPO)
+    # the repo, and `tests/` for the seeded MC lanes and the lanes' pixels
+    sys.path[:0] = [_REPO, os.path.join(_REPO, "tests")]
     from av1dec_tpu_torch import bindings
     from av1dec_tpu_torch.ops.kernels import cuda_build
 
@@ -1746,13 +1968,16 @@ def main():
 
     frame = timed_phase("2 (kernels)", phase_kernels, dev, int_rate)
     scan = timed_phase("2 (scan)", phase_scan, manifest, dev, int_rate)
+    timed_phase("2 (MC)", phase_mc, dev)
     timed_phase("2 (B7)", phase_b7, dev)
     launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
                                    int_rate)
     timed_phase("4", phase_entry_point, manifest, dev)
-    launches += timed_phase("5 (with 7a)", phase_inter, manifest, dev,
-                            int_rate)
-    launches += timed_phase("6", phase_host, manifest, dev)
+    n, mc_entry = timed_phase("5 (with 7a)", phase_inter, manifest, dev,
+                              int_rate)
+    launches += n
+    n, itx_entry = timed_phase("6", phase_host, manifest, dev, int_rate)
+    launches += n
     filter_launches = timed_phase("7b-e", phase_scale_out, manifest, dev,
                                   int_rate, frame0)
     launches += timed_phase("8a", phase_compound, manifest, dev, int_rate)
@@ -1776,7 +2001,9 @@ def main():
                 "bound_by": k["bound_by"], "library_ms": None}
     # the scan kernel's entry: its times on BIG's first batch (phase 2),
     # its launches those of every checked scan of phases 3-8 in this
-    # process
+    # process; the MC kernel's its times on BIG_INTER's frame 7 (phase
+    # 5), the residual kernel's on BIG_HOST's last host frame (phase 6),
+    # their launches those of every checked decode of phases 3-8
     scan["ms"] = scan["device_ms"]
     log(json.dumps({"kernels": [
         line("cdef_frame", "av1dec_tpu/ops/kernels/cdef.py:342", frame,
@@ -1785,6 +2012,10 @@ def main():
              filter_launches),
         line("wavefront_scan", "av1dec_tpu/ops/kernels/wavefront.py:343",
              scan, sum(MAIN_SCANS)),
+        line("mc", "av1dec_tpu/ops/kernels/mc.py:84", mc_entry,
+             sum(MAIN_MC)),
+        line("itx", "av1dec_tpu/ops/kernels/itx.py:88", itx_entry,
+             sum(MAIN_ITX)),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
-// A CPU stand-in for the CUDA runtime and the device intrinsics that
-// av1dec_tpu_torch/csrc/wavefront_scan.cu uses, so that g++ compiles that
-// exact source and runs its kernels on the host
-// (tests/test_torch_scan_shim.py).  The test puts two one-line headers,
+// A CPU stand-in for the CUDA runtime and the device intrinsics that the
+// kernels of av1dec_tpu_torch/csrc/ use (wavefront_scan.cu, mc.cu,
+// itx.cu), so that g++ compiles the exact source and runs its kernels on
+// the host (tests/test_torch_scan_shim.py, tests/test_torch_mc_shim.py,
+// tests/test_torch_itx_shim.py).  The test puts two one-line headers,
 // cuda_runtime.h and cuda/atomic, that include this file on the include
-// path, and compiles with -std=c++20 -pthread -DCUDA_CPU_SHIM_MAIN.
+// path, and compiles with -std=c++20 -pthread -DCUDA_CPU_SHIM_MAIN (and
+// -DCUDA_CPU_SHIM_ENTRY=name for a kernel other than the scan).
 //
 // A thread block is a process (fork), so that `__shared__`, which is
 // `static` here, is the block's own, and the blocks of a launch run at
-// once; a CUDA thread is a thread of that process.  The buffers the
+// once; a CUDA thread is a thread of that process.  With 0 resident
+// blocks (`cuda_cpu_shim_resident`), for kernels whose blocks never wait
+// on each other, the blocks run one after another in this process, by
+// one set of threads that meet at a barrier between blocks.  The buffers the
 // blocks write (the frame and the counters) are mapped shared by the
 // runner (main, below).  __syncthreads and the warp shuffles are barriers;
 // atomicAdd, cuda::atomic_ref and __threadfence are the host's atomics and
@@ -41,6 +46,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __constant__
 
 struct uint3 {
   unsigned x = 0, y = 0, z = 0;
@@ -158,6 +164,28 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
                                void (*f)(A), A arg) {
   const dim3 grid = config->gridDim, block = config->blockDim;
   std::fflush(nullptr);
+  if (cuda_cpu_shim_resident == 0) {
+    blockDim = block;
+    gridDim = grid;
+    CudaCpuShimBlock state;
+    state.block = std::make_unique<std::barrier<>>(block.x);
+    for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
+      state.warps.push_back(std::make_unique<std::barrier<>>(32));
+    cuda_cpu_shim_block = &state;
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t)
+      threads.emplace_back([=, &state] {
+        threadIdx.x = t;
+        for (unsigned b = 0; b < grid.x; ++b) {
+          blockIdx.x = b;
+          f(arg);
+          state.block->arrive_and_wait();
+        }
+      });
+    for (auto& th : threads) th.join();
+    cuda_cpu_shim_block = nullptr;
+    return cudaSuccess;
+  }
   std::vector<pid_t> kids;
   for (unsigned b = 0; b < grid.x; ++b) {
     const pid_t pid = fork();
@@ -193,13 +221,19 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
 }
 
 #ifdef CUDA_CPU_SHIM_MAIN
+#ifdef CUDA_CPU_SHIM_ENTRY
+extern "C" int CUDA_CPU_SHIM_ENTRY(const long long*, int, void*);
+#else
 extern "C" int wavefront_scan(const long long*, int, void*);
 extern "C" int wavefront_scan_floor(const long long*, int, void*);
+#endif
 
 // shim DIR ENTRY RESIDENT TICKETS: DIR/params.txt holds one line a
 // parameter, "i VALUE" or "p FILE SHARED"; a pointer parameter points
 // at FILE's bytes (mapped shared when SHARED is 1, and then written back
-// to FILE.out after the launch).  ENTRY: scan or floor.  Prints the
+// to FILE.out after the launch).  ENTRY: scan or floor, or anything with
+// CUDA_CPU_SHIM_ENTRY, which is then called; RESIDENT 0 runs the blocks
+// one after another; TICKETS is the entry's int argument.  Prints the
 // entry's return code and exits with it.
 int main(int argc, char** argv) {
   if (argc != 5) return 2;
@@ -242,9 +276,13 @@ int main(int argc, char** argv) {
   }
   std::fclose(pf);
   const int tickets = std::atoi(argv[4]);
+#ifdef CUDA_CPU_SHIM_ENTRY
+  const int rc = CUDA_CPU_SHIM_ENTRY(params.data(), tickets, nullptr);
+#else
   const int rc = std::strcmp(argv[2], "floor") == 0
                      ? wavefront_scan_floor(params.data(), tickets, nullptr)
                      : wavefront_scan(params.data(), tickets, nullptr);
+#endif
   for (const Buf& b : shared) {
     FILE* f = std::fopen((dir + "/" + b.file + ".out").c_str(), "wb");
     if (!f || std::fwrite(b.p, 1, b.bytes, f) != b.bytes) return 2;

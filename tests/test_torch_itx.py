@@ -9,7 +9,15 @@ on the CPU:
   JAX does;
 - `residual_bucket` equals the NumPy spec model (`dequant_batch`, then
   `inverse_transform_lanes`) on every valid (tx_size, tx_type), rect-64
-  included, at 8 and 10 bits, on levels of a conformant range.
+  included, at 8 and 10 bits, on levels of a conformant range;
+- the packed route (`pack_buckets`, then `residuals_packed` on a CPU
+  buffer: the plain `_residuals_plain`, no kernel launch) equals the
+  JAX `residual_bucket` of each bucket on the subset's extreme levels,
+  all buckets in one call; another device is refused;
+- on a card (`gpu` marker): the kernel `csrc/itx.cu`, one launch a
+  call, is byte-equal to the plain route on the card and to its CPU run
+  on every valid transform at 8, 10 and 12 bits, conformant and extreme
+  levels.
 """
 import numpy as np
 import pytest
@@ -124,3 +132,90 @@ def test_b7_matches_numpy_spec_on_every_valid_transform(bd):
                                 _t(acq), tsz, tt, bd)
         np.testing.assert_array_equal(got.numpy(), want,
                                       err_msg=f"tx_size {tsz} tx_type {tt}")
+
+
+def _packed_subset(bd, extreme, cases, B=6):
+    """`pack_buckets` of one bucket of B blocks for each case: extreme or
+    conformant levels; also returns the buckets."""
+    from av1dec_tpu_torch.ops.spec import dequant
+    rng = np.random.default_rng(bd + 17)
+    bi = dequant._BD_IDX[bd]
+    buckets = []
+    for tsz, tt in cases:
+        w, h = S.TX_DIMS[tsz]
+        m = min(w, 32) * min(h, 32)
+        if extreme:
+            levels = _extreme_levels(rng, B, m)
+            dcq, acq = _quantizers(rng, B, min(bd, 10))
+        else:
+            # a conformant range, halved at 12 bits (see
+            # tests/test_torch_itx_shim.py `_buckets`)
+            e = min(bd, 11)
+            q = rng.integers(0, 256, (2, B))
+            dcq = DC_Q[bi, q[0]].astype(np.int32)
+            acq = AC_Q[bi, q[1]].astype(np.int32)
+            lim = np.maximum(1, (1 << (e + 3)) // acq)[:, None]
+            levels = np.floor(rng.uniform(-1, 1, (B, m)) * (lim + 1))
+            levels[:, 0] = np.floor(rng.uniform(-1, 1, B) *
+                                    np.maximum(1, (1 << (e + 6)) // dcq))
+            levels[rng.random(levels.shape) < 0.6] = 0
+            levels = levels.astype(np.int32)
+        buckets.append((levels, dcq, acq, tsz, tt))
+    return T.pack_buckets(buckets), buckets
+
+
+def _unpacked(flat, spans):
+    return [flat[o0:o0 + B * S.TX_DIMS[tsz][0] * S.TX_DIMS[tsz][1]]
+            .reshape(B, S.TX_DIMS[tsz][1], S.TX_DIMS[tsz][0])
+            for tsz, _, _, B, _, o0 in spans]
+
+
+def test_residuals_packed_plain_route_matches_jax():
+    import jax.numpy as jnp
+    from av1dec_tpu.ops.kernels import itx as K
+    (buf, spans, words), buckets = _packed_subset(8, True, SUBSET_BELOW_64)
+    before = T.launches
+    got = T.residuals_packed(torch.as_tensor(buf), spans, words, 8)
+    assert T.launches == before and got.dtype == torch.int32
+    assert got.shape == (words,) and len(spans) == len(buckets)
+    for (levels, dcq, acq, tsz, tt), res in zip(
+            buckets, _unpacked(got.numpy(), spans)):
+        want = K.residual_bucket(jnp.asarray(levels), jnp.asarray(dcq),
+                                 jnp.asarray(acq), tsz, tt, 8)
+        np.testing.assert_array_equal(res, np.asarray(want),
+                                      err_msg=f"{tsz} {tt}")
+    with pytest.raises(ValueError, match="unsupported device"):
+        T.residuals_packed(torch.zeros(8, dtype=torch.int32,
+                                       device="meta"), spans, words, 8)
+
+
+def test_residuals_kernel_refuses_what_it_does_not_take():
+    """The launch's checks, which run before the kernel is loaded."""
+    (buf, spans, words), _ = _packed_subset(8, False, [(0, 0), (3, 9)])
+    buf = torch.as_tensor(buf)
+    for args, match in (
+            ((buf.to(torch.int64), spans, words, 8), "int32"),
+            ((buf, spans, words, 9), "bit depth"),
+            ((buf, [(3, 1) + spans[1][2:]], words, 8), "does not take"),
+            ((buf, spans, words - 1, 8), "beyond"),
+            ((buf[:-1], spans, words, 8), "beyond")):
+        with pytest.raises(ValueError, match=match):
+            T._residuals_kernel(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_cuda_residuals_match_plain(bd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(run with `pytest -m gpu` on the card)")
+    for extreme in (False, True):
+        (buf, spans, words), _ = _packed_subset(bd, extreme,
+                                                T.valid_transforms(), B=4)
+        cpu = T.residuals_packed(torch.as_tensor(buf), spans, words, bd)
+        dev = torch.as_tensor(buf, device="cuda")
+        plain = T._residuals_plain(dev, spans, words, bd)
+        before = T.launches
+        got = T.residuals_packed(dev, spans, words, bd)
+        assert T.launches == before + 1
+        assert torch.equal(got, plain) and torch.equal(got.cpu(), cpu)

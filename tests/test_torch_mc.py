@@ -9,14 +9,29 @@ exactly (CPU backend):
   bank and subpel phase, single-list, average and distance-weighted
   compound lanes, bit depths 8, 10 and 12, and every tile size T from 4
   to 128.  The frame buffer starts random, so a lane that writes outside
-  its w x h window shows."""
+  its w x h window shows;
+- `mc_into` on a CPU buffer takes the plain route `_mc_plain` (no kernel
+  launch) and equals the JAX `run_mc` on those lanes; another device is
+  refused;
+- no two MC lanes of a frame write the same pixel, on every inter frame
+  on the device path of every committed small stream that has one (the
+  kernel `csrc/mc.cu` runs its blocks in no order);
+- on a card (`gpu` marker): the kernel, one launch a pass, is byte-equal
+  to `_mc_plain` on the seeded lanes and on the stream lanes of the
+  card's own decode."""
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import decode_capture, jax_refs, parse
+from torch_port_helpers import (decode_capture, jax_refs, manifest,
+                                mc_lane_pixels, parse, seeded_mc_lanes,
+                                small_streams)
 
-QUANT_DIST_LOOKUP = [(9, 7), (11, 5), (12, 4), (13, 3)]
+# committed small streams whose coded frames include inter frames on the
+# device path with inter blocks (an MC pass); the other inter streams'
+# inter frames all take the host pixel path or have no inter block
+MC_STREAMS = [n for n in small_streams() if manifest()[n].get("inter") and
+              n not in ("bframes", "obmc", "scaledref2", "sres_inter")]
 
 
 def _jax_mc(frame0, ref_np, lanes_np, bd):
@@ -40,63 +55,10 @@ def _port_mc(frame0, pieces, lanes_np, bd):
     return out.numpy()
 
 
-def _seeded_lanes(bd, rng):
-    """(frame0, ref pieces, lanes) covering every bucket, both lists,
-    both compound kinds, the four clamp corners and all filter banks."""
-    from av1dec_tpu_torch.ops.kernels.mc import MC_FIELDS, _MF
-    from av1dec_tpu_torch.pipeline.device_inter import MC_BUCKETS
-    dt = np.uint8 if bd == 8 else np.uint16
-    shapes = [(40, 56), (23, 31)]        # (h, w) of two reference pieces
-    pieces = [rng.integers(0, 1 << bd, s).astype(dt) for s in shapes]
-    rbs = [0, 40 * 56]
-    post = 14 - (5 if bd == 12 else 3) - 7
-    lanes, base = {}, 0
-    for T in MC_BUCKETS:
-        for comp in (0, 1):
-            N = 8 if T <= 32 else 4
-            rows = np.zeros((N, len(MC_FIELDS)), np.int64)
-            stride = 4 * T
-            for i in range(N):
-                r = rows[i]
-                r[_MF["x"]], r[_MF["y"]] = (i % 4) * T, (i // 4) * T
-                r[_MF["base"]], r[_MF["stride"]] = base, stride
-                r[_MF["w"]], r[_MF["h"]] = rng.integers(1, T + 1, 2)
-                for s in "01"[:1 + comp]:
-                    k = int(rng.integers(2))
-                    ph, pw = shapes[k]
-                    lx = pw - 1 - int(rng.integers(3))
-                    ly = ph - 1 - int(rng.integers(3))
-                    # lanes 0-3 start past the four corners, the rest
-                    # anywhere from left of the piece to right of it
-                    cx, cy = [(-T - 10, -T - 10), (lx + 5, -3),
-                              (-3, ly + 5), (lx + 5, ly + 5)][i] \
-                        if i < 4 else rng.integers(-T - 12, [lx + 12,
-                                                             ly + 12])
-                    r[_MF["rb" + s]], r[_MF["rs" + s]] = rbs[k], pw
-                    r[_MF["lx" + s]], r[_MF["ly" + s]] = lx, ly
-                    r[_MF["cx" + s]], r[_MF["cy" + s]] = cx, cy
-                    r[_MF["hf" + s]] = (i * 16 + rng.integers(16)) % 96
-                    r[_MF["vf" + s]] = ((i + 3) * 16 +
-                                        rng.integers(16)) % 96
-                if comp and i % 2:               # distance-weighted
-                    fwd, bck = QUANT_DIST_LOOKUP[int(rng.integers(4))]
-                    if rng.integers(2):
-                        fwd, bck = bck, fwd
-                    r[_MF["w0"]], r[_MF["w1"]] = fwd, bck
-                    r[_MF["bshift"]] = post + 4
-                elif comp:                       # average
-                    r[_MF["w0"]] = r[_MF["w1"]] = 1
-                    r[_MF["bshift"]] = post + 1
-            lanes[(T, comp)] = rows
-            base += (N // 4 + 1) * T * stride
-    frame0 = rng.integers(-5, 1 << bd, base).astype(np.int32)
-    return frame0, pieces, lanes
-
-
 @pytest.mark.parametrize("bd", [8, 10, 12])
 def test_run_mc_matches_jax_on_seeded_lanes(bd):
     rng = np.random.default_rng(100 + bd)
-    frame0, pieces, lanes = _seeded_lanes(bd, rng)
+    frame0, pieces, lanes = seeded_mc_lanes(bd, rng)
     ref_np = np.concatenate([p.reshape(-1) for p in pieces])
     want = _jax_mc(frame0, ref_np, lanes, bd)
     got = _port_mc(frame0, pieces, lanes, bd)
@@ -125,3 +87,119 @@ def test_run_mc_matches_jax_on_stream_lanes(name, native_lib):
         np.testing.assert_array_equal(got, want)
         n_inter += 1
     assert n_inter >= 3
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_mc_into_plain_route_matches_jax(bd):
+    from av1dec_tpu_torch.ops.kernels import mc
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    rng = np.random.default_rng(300 + bd)
+    frame0, pieces, lanes = seeded_mc_lanes(bd, rng)
+    ref_np = np.concatenate([p.reshape(-1) for p in pieces])
+    want = _jax_mc(frame0, ref_np, lanes, bd)
+    cfg, rows = upload_lanes(lanes, bd, "cpu")
+    frame = torch.as_tensor(np.append(frame0, 0).astype(np.int32))
+    before = mc.launches
+    mc.mc_into(frame, pack_ref_flat(pieces, "cpu"), rows, cfg)
+    assert mc.launches == before
+    np.testing.assert_array_equal(frame[:-1].numpy(), want)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mc.mc_into(torch.zeros(8, dtype=torch.int32, device="meta"),
+                   pack_ref_flat(pieces, "cpu"), rows, cfg)
+
+
+@pytest.mark.parametrize("name", MC_STREAMS)
+def test_mc_lanes_write_disjoint_pixels(name, native_lib):
+    _, _, drs = decode_capture(name)
+    n = 0
+    for dr in drs:
+        if dr._inter_plan is None:
+            continue
+        px = mc_lane_pixels(dr._inter_plan.lanes)
+        assert len(px) and len(np.unique(px)) == len(px), name
+        assert px.min() >= 0 and px.max() < dr.sch.flat_len
+        n += 1
+    assert n > 0
+
+
+def test_mc_kernel_refuses_what_it_does_not_take():
+    """The launch's checks, which run before the kernel is loaded."""
+    from av1dec_tpu_torch.ops.kernels import mc
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    frame0, pieces, lanes = seeded_mc_lanes(8, np.random.default_rng(1))
+    cfg, rows = upload_lanes(lanes, 8, "cpu")
+    frame = torch.zeros(len(frame0) + 1, dtype=torch.int32)
+    ref = pack_ref_flat(pieces, "cpu")
+    bad_rows = {**rows, (4, 0): rows[(4, 0)][:, :-1]}
+    for args, match in (
+            ((frame, ref, rows, (cfg[0], 9)), "bits"),
+            ((frame.to(torch.int64), ref, rows, cfg), "frame"),
+            ((frame, ref.to(torch.int16), rows, cfg), "reference"),
+            ((frame, ref, bad_rows, cfg), "bucket"),
+            ((frame, ref, rows, (cfg[0] * 2, 8)), "buckets")):
+        with pytest.raises(ValueError, match=match):
+            mc._mc_kernel(*args)
+    # a pass without lanes launches nothing
+    before = mc.launches
+    mc._mc_kernel(frame, ref, {}, ((), 8))
+    assert mc.launches == before
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(run with `pytest -m gpu` on the card)")
+
+
+def _card_check(frame0, ref_flat, rows, cfg, runs=3):
+    """`runs` kernel passes on the card, one launch each, byte-equal to
+    `_mc_plain` on the card."""
+    from av1dec_tpu_torch.ops.kernels import mc
+    frame = torch.as_tensor(np.append(frame0, -7).astype(np.int32),
+                            device="cuda")
+    plain = frame.clone()
+    mc._mc_plain(plain, ref_flat, rows, cfg)
+    for _ in range(runs):
+        got = frame.clone()
+        before = mc.launches
+        mc.mc_into(got, ref_flat, rows, cfg)
+        assert mc.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[:-1], plain[:-1]) and int(got[-1]) == -7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_cuda_mc_matches_plain_on_seeded_lanes(bd):
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    _need_card()
+    rng = np.random.default_rng(100 + bd)
+    frame0, pieces, lanes = seeded_mc_lanes(bd, rng)
+    ref = pack_ref_flat(pieces, "cuda")
+    cfg, rows = upload_lanes(lanes, bd, "cuda")
+    _card_check(frame0, ref, rows, cfg)
+    _card_check(frame0, ref.to(torch.int32), rows, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lowdelay", "interbd10", "c4", "c5",
+                                  "masked"])
+def test_cuda_mc_matches_plain_on_stream_lanes(name):
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    _need_card()
+    _, _, drs = decode_capture(name)
+    rng = np.random.default_rng(7)
+    n = 0
+    for dr in drs:
+        ip = dr._inter_plan
+        if ip is None:
+            continue
+        cfg, rows = upload_lanes(ip.lanes, ip.bd, "cuda")
+        frame0 = rng.integers(0, 1 << ip.bd, dr.sch.flat_len)
+        _card_check(frame0, pack_ref_flat(ip.ref_np, "cuda"), rows, cfg)
+        n += 1
+    assert n >= 3

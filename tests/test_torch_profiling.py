@@ -1,6 +1,8 @@
 """The trace helpers of `av1dec_tpu_torch.profiling` on made-up traces:
-what lies between the markers is kept, and a trace that lost records is
-taken again (the profiler itself needs the card)."""
+what lies between the markers is kept, a trace that lost records is
+taken again, and where no trace of a named kernel is whole, the last
+such kernels a trace kept are taken (the profiler itself needs the
+card)."""
 from types import SimpleNamespace
 
 import pytest
@@ -44,13 +46,12 @@ def test_between_markers(marks):
 
 def _replay(monkeypatch, traces):
     """profiling.device_events hands out `traces` in turn (None: a trace
-    that lost a marker); returns the waits it was asked for."""
+    that kept nothing); returns the waits it was asked for."""
     calls = []
 
     def fake(fn, iters, settle):
         calls.append(settle)
-        ev = traces[len(calls) - 1]
-        return None if ev is None else profiling.between_markers(ev)
+        return traces[len(calls) - 1] or []
     monkeypatch.setattr(profiling, "device_events", fake)
     return calls
 
@@ -59,17 +60,17 @@ def test_complete_events_named_retakes_lost_traces(monkeypatch):
     lost_run = _trace(5)[:12] + _trace(5)[14:]  # two kernels lost
     calls = _replay(monkeypatch, [None, lost_run, _trace(5, marks=(1, 0)),
                                   _trace(5)])
-    ev, n = profiling.complete_events(None, 5, KERNEL)
+    ev, n, whole = profiling.complete_events(None, 5, KERNEL)
     s = profiling.SETTLE_S
-    assert (n, calls) == (4, [s, 2 * s, 4 * s, 8 * s])
+    assert (n, whole, calls) == (4, True, [s, 2 * s, 4 * s, 8 * s])
     assert sum(KERNEL in e.name for e in ev) == 5
 
 
 def test_complete_events_unnamed_needs_two_equal_counts(monkeypatch):
     short = _trace(5)[:12] + _trace(5)[13:]
     calls = _replay(monkeypatch, [_trace(5), short, _trace(5)])
-    ev, n = profiling.complete_events(None, 5)
-    assert (n, len(calls), len(ev)) == (3, 3, 5)
+    ev, n, whole = profiling.complete_events(None, 5)
+    assert (n, len(calls), len(ev), whole) == (3, 3, 5, True)
 
 
 def test_complete_events_collective_verdict(monkeypatch):
@@ -81,16 +82,46 @@ def test_complete_events_collective_verdict(monkeypatch):
     def agree(ok):
         seen.append(ok)
         return next(verdicts) and ok
-    ev, n = profiling.complete_events(None, 3, KERNEL, agree)
-    assert (n, seen, len(ev)) == (2, [True, True], 3)
+    ev, n, whole = profiling.complete_events(None, 3, KERNEL, agree)
+    assert (n, seen, len(ev), whole) == (2, [True, True], 3, True)
 
 
 @pytest.mark.parametrize("name", [KERNEL, None])
 def test_complete_events_gives_up(monkeypatch, name):
-    # named: every trace lost a marker; unnamed: no two counts agree
-    traces = [None if name else _trace(i) for i in range(profiling.ATTEMPTS)]
+    # named: every trace lost a marker and kept fewer than 5 kernels;
+    # unnamed: no two counts agree
+    traces = [_trace(5, marks=(False, True))[12:] if name else _trace(i)
+              for i in range(profiling.ATTEMPTS)]
     calls = _replay(monkeypatch, traces)
     with pytest.raises(RuntimeError, match="lost records"):
         profiling.complete_events(None, 5, name)
     assert len(calls) == profiling.ATTEMPTS
     assert max(calls) == 32 * profiling.SETTLE_S
+
+
+@pytest.mark.parametrize("cut", [0, 6, 10])
+def test_complete_events_named_falls_back_to_the_last_kernels(monkeypatch,
+                                                              cut):
+    """No trace kept its first marker (and `cut` lead kernels were lost
+    too); the first trace with 5 kernels gives its last 5, in order."""
+    lost = [_trace(5, marks=(False, True))[cut:]
+            for _ in range(profiling.ATTEMPTS)]
+    lost[0] = lost[0][:3]  # too few kernels: not the fallback
+    calls = _replay(monkeypatch, lost)
+    ev, n, whole = profiling.complete_events(None, 5, KERNEL)
+    assert (n, whole, len(calls)) == (profiling.ATTEMPTS, False,
+                                      profiling.ATTEMPTS)
+    assert sorted(e.time_range.start for e in ev) == [110, 120, 130, 140,
+                                                      150]
+    # the group falls back only together
+    _replay(monkeypatch, lost)
+    with pytest.raises(RuntimeError, match="lost records"):
+        profiling.complete_events(None, 5, KERNEL, lambda ok: False)
+
+
+def test_tail_events_without_the_last_marker():
+    ev = _trace(5, marks=(False, False))
+    got = profiling.tail_events(ev, KERNEL, 5)
+    assert sorted(e.time_range.start for e in got) == [110, 120, 130, 140,
+                                                       150]
+    assert profiling.tail_events(ev, KERNEL, 16) is None

@@ -11,7 +11,11 @@ with B7 and CDEF on the device, and film grain at output), on the CPU:
   (its host planes: no device copy is kept for a host frame);
 - `FrameRecon`'s residuals (device buckets and the NumPy route of
   quantizer-matrix, lossless and WHT buckets) equal the JAX
-  `FrameRecon`'s on every frame of three streams.
+  `FrameRecon`'s on every frame of three streams;
+- `residuals_device` takes every device bucket of a frame in one packed
+  call (one upload, one `residuals_packed`, one fetch), and its
+  residuals equal the JAX `FrameRecon`'s on every frame of an 8-bit and
+  a 10-bit inter stream.
 """
 import numpy as np
 import pytest
@@ -107,3 +111,28 @@ def test_frame_recon_residuals_match_jax(name, native_lib):
             np.testing.assert_array_equal(got[i], want[i])
         n += len(want)
     assert n > 0
+
+
+@pytest.mark.parametrize("name", ["warp", "interbd10"])
+def test_residuals_device_packed_matches_jax(name, native_lib, monkeypatch):
+    from av1dec_tpu.pipeline.recon import FrameRecon as JFR
+    from av1dec_tpu_torch.ops.kernels import itx
+    from av1dec_tpu_torch.pipeline.recon import FrameRecon as TFR
+    calls = []
+    real = itx._residuals_plain
+
+    def spy(buf, spans, words, bd):
+        calls.append(len(spans))
+        return real(buf, spans, words, bd)
+    monkeypatch.setattr(itx, "_residuals_plain", spy)
+    frames = 0
+    for (js, jh, jp), (ts, th, tp) in zip(parse(name, "jax"),
+                                          parse(name, "torch")):
+        want = JFR(js, jh, jp)._precompute_residuals()
+        got = TFR(ts, th, tp, device="cpu")._precompute_residuals()
+        assert sorted(got) == sorted(want)
+        for i in want:
+            np.testing.assert_array_equal(got[i], want[i])
+        frames += 1
+    # one packed call a frame, most of them with several buckets
+    assert len(calls) == frames and max(calls) > 1

@@ -14,20 +14,13 @@ exact source, its blocks as processes and its threads as threads.
 
 Skips when g++ is missing (decided inside the tests).
 """
-import os
-import shutil
-import subprocess
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import parse
-
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CU = os.path.join(_ROOT, "av1dec_tpu_torch", "csrc", "wavefront_scan.cu")
-_SHIM = os.path.join(_ROOT, "tests", "cuda_cpu_shim.h")
+from torch_port_helpers import parse, shim_build, shim_run
 
 # (stream, frames per batch); lowdelay's batch is its first frame with
 # MF_INTER lanes
@@ -38,19 +31,9 @@ CASES = [("base", 1), ("palette", 1), ("i444", 1), ("mono", 1),
 @pytest.fixture(scope="module")
 def shim(tmp_path_factory):
     """The g++ build of the kernel source with the shim and its main."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    exe = shim_build(tmp_path_factory.mktemp("shim"), "wavefront_scan")
+    if exe is None:
         pytest.skip("needs g++ to build the CPU shim")
-    d = tmp_path_factory.mktemp("shim")
-    os.makedirs(d / "cuda")
-    for name in ("cuda_runtime.h", os.path.join("cuda", "atomic")):
-        (d / name).write_text(f'#include "{_SHIM}"\n')
-    (d / "main.cc").write_text(f'#include "{_CU}"\n')
-    exe = str(d / "scan_shim")
-    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread",
-                    "-DCUDA_CPU_SHIM_MAIN", "-I", str(d), "-o", exe,
-                    str(d / "main.cc")], check=True, capture_output=True,
-                   timeout=300)
     return exe
 
 
@@ -94,25 +77,13 @@ def _run(exe, d, inputs, entry, resident, tickets=None):
                        inputs["pal"], inputs["config"],
                        torch.as_tensor(np.ascontiguousarray(tickets)),
                        counters)
-    lines = []
-    for k, (name, v) in enumerate(zip(W._PARAMS, params)):
-        if torch.is_tensor(v):
-            (d / f"{k}_{name}").write_bytes(v.contiguous().numpy().tobytes())
-            lines.append(f"p {k}_{name} "
-                         f"{int(v is frame or v is counters)}")
-        else:
-            lines.append(f"i {int(v)}")
-    (d / "params.txt").write_text("\n".join(lines) + "\n")
-    r = subprocess.run([exe, str(d), entry, str(resident),
-                        str(len(tickets))], capture_output=True, text=True,
-                       timeout=120)
-
-    def out(k, name):
-        return np.fromfile(d / f"{k}_{name}.out", np.int32)
-    if r.returncode != 0:
-        return r.returncode, None, None, r.stderr
-    return (0, out(W._PARAMS.index("frame"), "frame"),
-            out(W._PARAMS.index("counters"), "counters"), r.stderr)
+    kf, kc = W._PARAMS.index("frame"), W._PARAMS.index("counters")
+    rc, out, err = shim_run(exe, d, params, len(tickets), {kf, kc}, entry,
+                            resident)
+    if rc != 0:
+        return rc, None, None, err
+    return (0, np.frombuffer(out[kf], np.int32),
+            np.frombuffer(out[kc], np.int32), err)
 
 
 @pytest.mark.parametrize("resident", [1, 3])

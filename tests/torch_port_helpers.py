@@ -1,10 +1,16 @@
 """Shared helpers of the tests/test_torch_*.py files: the committed
-streams of av1dec_tpu_torch/testdata and their parse by either package."""
+streams of av1dec_tpu_torch/testdata and their parse by either package,
+seeded MC lanes, and the g++ build and run of a `csrc/` kernel against
+the CPU shim `tests/cuda_cpu_shim.h`."""
 import json
 import os
+import shutil
+import subprocess
 
-TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "av1dec_tpu_torch", "testdata")
+import numpy as np
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTDATA = os.path.join(_ROOT, "av1dec_tpu_torch", "testdata")
 BIG = ("bench_1080p_intra", "bench_1080p_inter", "bench_1080p_host",
        "bench_1080p_host_cq40", "bench_1080p_compound")
 
@@ -99,3 +105,120 @@ def jax_refs(refs):
     return {r: dict(e, dev_planes=None if e["dev_planes"] is None else
                     [p.numpy() for p in e["dev_planes"]])
             for r, e in refs.items()}
+
+
+# (forward, backward) distance weights of distance-weighted compound
+QUANT_DIST_LOOKUP = [(9, 7), (11, 5), (12, 4), (13, 3)]
+
+
+def seeded_mc_lanes(bd, rng):
+    """(frame0, ref pieces, lanes) covering every MC bucket, both lists,
+    both compound kinds, the four clamp corners and all filter banks;
+    the lanes write disjoint pixels of frame0."""
+    from av1dec_tpu_torch.ops.kernels.mc import MC_FIELDS, _MF
+    from av1dec_tpu_torch.pipeline.device_inter import MC_BUCKETS
+    dt = np.uint8 if bd == 8 else np.uint16
+    shapes = [(40, 56), (23, 31)]        # (h, w) of two reference pieces
+    pieces = [rng.integers(0, 1 << bd, s).astype(dt) for s in shapes]
+    rbs = [0, 40 * 56]
+    post = 14 - (5 if bd == 12 else 3) - 7
+    lanes, base = {}, 0
+    for T in MC_BUCKETS:
+        for comp in (0, 1):
+            N = 8 if T <= 32 else 4
+            rows = np.zeros((N, len(MC_FIELDS)), np.int64)
+            stride = 4 * T
+            for i in range(N):
+                r = rows[i]
+                r[_MF["x"]], r[_MF["y"]] = (i % 4) * T, (i // 4) * T
+                r[_MF["base"]], r[_MF["stride"]] = base, stride
+                r[_MF["w"]], r[_MF["h"]] = rng.integers(1, T + 1, 2)
+                for s in "01"[:1 + comp]:
+                    k = int(rng.integers(2))
+                    ph, pw = shapes[k]
+                    lx = pw - 1 - int(rng.integers(3))
+                    ly = ph - 1 - int(rng.integers(3))
+                    # lanes 0-3 start past the four corners, the rest
+                    # anywhere from left of the piece to right of it
+                    cx, cy = [(-T - 10, -T - 10), (lx + 5, -3),
+                              (-3, ly + 5), (lx + 5, ly + 5)][i] \
+                        if i < 4 else rng.integers(-T - 12, [lx + 12,
+                                                             ly + 12])
+                    r[_MF["rb" + s]], r[_MF["rs" + s]] = rbs[k], pw
+                    r[_MF["lx" + s]], r[_MF["ly" + s]] = lx, ly
+                    r[_MF["cx" + s]], r[_MF["cy" + s]] = cx, cy
+                    r[_MF["hf" + s]] = (i * 16 + rng.integers(16)) % 96
+                    r[_MF["vf" + s]] = ((i + 3) * 16 +
+                                        rng.integers(16)) % 96
+                if comp and i % 2:               # distance-weighted
+                    fwd, bck = QUANT_DIST_LOOKUP[int(rng.integers(4))]
+                    if rng.integers(2):
+                        fwd, bck = bck, fwd
+                    r[_MF["w0"]], r[_MF["w1"]] = fwd, bck
+                    r[_MF["bshift"]] = post + 4
+                elif comp:                       # average
+                    r[_MF["w0"]] = r[_MF["w1"]] = 1
+                    r[_MF["bshift"]] = post + 1
+            lanes[(T, comp)] = rows
+            base += (N // 4 + 1) * T * stride
+    frame0 = rng.integers(-5, 1 << bd, base).astype(np.int32)
+    return frame0, pieces, lanes
+
+
+def mc_lane_pixels(lanes):
+    """Flat destination index of every pixel every MC lane writes, from a
+    lane dict {(T, comp): [N, F] rows} (host arrays or tensors)."""
+    from av1dec_tpu_torch.ops.kernels.mc import _MF
+    out = [np.zeros(0, np.int64)]
+    for rows in lanes.values():
+        rows = rows.cpu().numpy() if hasattr(rows, "cpu") else rows
+        for r in np.asarray(rows, np.int64):
+            i, j = np.mgrid[:r[_MF["h"]], :r[_MF["w"]]]
+            out.append((r[_MF["base"]] + (r[_MF["y"]] + i) * r[_MF["stride"]]
+                        + r[_MF["x"]] + j).reshape(-1))
+    return np.concatenate(out)
+
+
+def shim_build(d, source, entry=None):
+    """The g++ build of `av1dec_tpu_torch/csrc/<source>.cu` against the
+    CPU shim with its main, in directory `d` (a pathlib.Path), calling
+    the C function `entry` (default: the scan's entries).  Returns the
+    executable, or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    os.makedirs(d / "cuda", exist_ok=True)
+    shim = os.path.join(_ROOT, "tests", "cuda_cpu_shim.h")
+    for name in ("cuda_runtime.h", os.path.join("cuda", "atomic")):
+        (d / name).write_text(f'#include "{shim}"\n')
+    cu = os.path.join(_ROOT, "av1dec_tpu_torch", "csrc", source + ".cu")
+    (d / "main.cc").write_text(f'#include "{cu}"\n')
+    exe = str(d / f"{source}_shim")
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread",
+                    "-DCUDA_CPU_SHIM_MAIN"] +
+                   ([f"-DCUDA_CPU_SHIM_ENTRY={entry}"] if entry else []) +
+                   ["-I", str(d), "-o", exe, str(d / "main.cc")],
+                   check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def shim_run(exe, d, params, count, shared, entry="run", resident=0):
+    """Run the shim's main on a kernel's parameter list (tensors where it
+    takes a pointer, ints) in directory `d`: each tensor goes to a file,
+    the tensors at the indices `shared` are read back after the launch.
+    `count` is the entry's int argument; `resident` 0 runs the blocks
+    one after another.  Returns (return code, {index: bytes}, stderr)."""
+    import torch
+    lines = []
+    for k, v in enumerate(params):
+        if torch.is_tensor(v):
+            (d / f"p{k}").write_bytes(v.contiguous().cpu().numpy().tobytes())
+            lines.append(f"p p{k} {int(k in shared)}")
+        else:
+            lines.append(f"i {int(v)}")
+    (d / "params.txt").write_text("\n".join(lines) + "\n")
+    r = subprocess.run([exe, str(d), entry, str(resident), str(count)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        return r.returncode, None, r.stderr
+    return 0, {k: (d / f"p{k}.out").read_bytes() for k in shared}, r.stderr
