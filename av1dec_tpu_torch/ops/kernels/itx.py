@@ -38,8 +38,12 @@ launches = 0
 # enum Desc): its levels' and its residual's offsets, its transform and
 # its quantizers
 DESC_FIELDS = ["lev", "out", "tx_size", "tx_type", "dcq", "acq"]
-# the kernel's int64 parameter array (enum Param)
-_PARAMS = ["out", "desc", "levels", "levels_len", "bd"]
+# the kernel's int64 parameter array (enum Param): pointers and ints,
+# then the number of spans, each span's (tx_size, tx_type, first block,
+# blocks) after it
+_PARAMS = ["out", "desc", "levels", "levels_len", "bd", "spans"]
+# spans a call, at most (every valid transform is 185)
+MAX_SPANS = 190
 
 
 def valid_transforms():
@@ -206,9 +210,11 @@ def _residuals_kernel(buf, spans, words, bd):
         raise ValueError("residuals_packed: the buffer must be flat "
                          "contiguous int32, the bit depth 8, 10 or 12")
     valid = set(valid_transforms())
-    if any((tsz, tt) not in valid for tsz, tt, *_ in spans):
-        raise ValueError("residuals_packed: a (tx_size, tx_type) the "
-                         "kernel does not take")
+    if any((tsz, tt) not in valid for tsz, tt, *_ in spans) or \
+            len(spans) > MAX_SPANS:
+        raise ValueError(f"residuals_packed: a (tx_size, tx_type) the "
+                         f"kernel does not take, or more than {MAX_SPANS} "
+                         f"spans")
     blocks = sum(s[3] for s in spans)
     levels = buf.numel() - blocks * len(DESC_FIELDS)
     for tsz, _, _, B, l0, o0 in spans:
@@ -234,7 +240,9 @@ def _residuals_kernel(buf, spans, words, bd):
 
 
 def _params(out, buf, spans, bd):
-    """The kernel's parameters in `_PARAMS` order: tensors where it takes
-    a pointer, ints."""
+    """The kernel's parameters in `_PARAMS` order, then each span's
+    (tx_size, tx_type, first block, blocks): tensors where it takes a
+    pointer, ints."""
     desc, levs = _split(buf, spans)
-    return [out, desc, levs, levs.shape[0], bd]
+    return [out, desc, levs, levs.shape[0], bd, len(spans)] + \
+        [v for tsz, tt, b0, B, _, _ in spans for v in (tsz, tt, b0, B)]

@@ -43,15 +43,19 @@ Phases (each raises on failure, so the script exits non-zero):
      never written: seeded lanes of every T from 4 to 128, single-list,
      average and distance-weighted compound, past every edge of the
      reference, partial w x h, at 8 bits (uint8 and int32 references),
-     10 and 12 bits (the real lanes of a 1080p inter and compound frame
-     in phases 5 and 8a, where their decodes capture them);
+     10 and 12 bits, in small reference pieces (most window rows
+     clamped) and in pieces larger than any window (most rows copied
+     with cp.async, at every offset of a 16-byte chunk) (the real lanes
+     of a 1080p inter and compound frame in phases 5 and 8a, where their
+     decodes capture them);
    - `itx` (B7, the device residuals: every block of a call in one
      launch, from `itx.pack_buckets`' buffer) against the plain route
      on the card (`_residuals_plain`: `residual_bucket` a bucket), its
      CPU run and the NumPy spec model, on every valid (tx_size,
      tx_type) at 8, 10 and 12 bits, one call a bit depth, ITX_REPEATS
      runs; on extreme levels, where the plain route wraps in int32,
-     against the plain route and its CPU run;
+     and on spans of 65 blocks of every tx_size (several CTAs each, the
+     last part-filled), against the plain route and its CPU run;
 3. main path: `decode_stream_batched(device="cuda")` on the committed
    1080p 8-frame all-intra stream: every frame's MD5 against the
    committed manifest, one `cdef_frame` launch per frame with CDEF on
@@ -166,6 +170,7 @@ Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -232,6 +237,11 @@ SCAN_REPEATS = 50
 # on each checked call, each byte-compared with its plain version
 MC_REPEATS = 10
 ITX_REPEATS = 10
+# B7's multi-CTA spans (phase 2): blocks a span (more than two CTAs of
+# any size, a multiple of none), and their transform types: DCT, FLIPADST
+# both ways, identity, and the 1-D types with a flip
+SPAN_BLOCKS = 65
+SPAN_TYPES = (0, 6, 9, 14, 15)
 # (subx, suby) of each chroma format; None is mono
 FORMATS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "mono": None}
 GATES = ("mixed", "zero", "pri_only", "sec_only", "all_taps")
@@ -1086,17 +1096,22 @@ def phase_mc(dev):
     MC_REPEATS runs each, on seeded lanes of every T from 4 to 128,
     single-list, average and distance-weighted compound, motion vectors
     past every edge of the reference and partial w x h windows, at 8
-    bits (uint8 and int32 references), 10 and 12 bits.  (The real lanes
-    of BIG_INTER's frame 7 and of BIG_COMPOUND's last compound frame are
-    checked where their decodes capture them, phases 5 and 8a.)"""
-    from torch_port_helpers import seeded_mc_lanes
+    bits (uint8 and int32 references), 10 and 12 bits, in small
+    reference pieces and in pieces larger than any window.  (The real
+    lanes of BIG_INTER's frame 7 and of BIG_COMPOUND's last compound
+    frame are checked where their decodes capture them, phases 5 and
+    8a.)"""
+    from torch_port_helpers import LARGE_PIECES, seeded_mc_lanes
     from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
                                                         upload_lanes)
     launches = n = 0
-    for bd, dt in ((8, torch.uint8), (8, torch.int32), (10, torch.int32),
-                   (12, torch.int32)):
+    # small pieces (seed 100 + bd) and pieces larger than any window (seed
+    # 400 + bd), as tests/test_torch_mc.py
+    for (bd, dt), (seed, kw) in itertools.product(
+            ((8, torch.uint8), (8, torch.int32), (10, torch.int32),
+             (12, torch.int32)), ((100, {}), (400, LARGE_PIECES))):
         frame0, pieces, lanes = seeded_mc_lanes(
-            bd, np.random.default_rng(100 + bd))
+            bd, np.random.default_rng(seed + bd), **kw)
         cfg, rows = upload_lanes(lanes, bd, dev)
         if len(cfg[0]) != 12:
             raise AssertionError(f"seeded lanes fill {len(cfg[0])} buckets")
@@ -1108,9 +1123,10 @@ def phase_mc(dev):
         n += sum(b[2] for b in cfg[0])
     log(f"kernel mc: byte-equal to _mc_plain on {n} seeded lanes (every T "
         f"4-128, single, average and distance-weighted compound, past "
-        f"every edge, partial windows; 8-bit uint8 and int32 references, "
-        f"10 and 12 bits), {MC_REPEATS} runs each; {launches} launches, one "
-        f"a run; the trash slot never written; max abs err 0")
+        f"every edge, partial windows, in small and in large reference "
+        f"pieces; 8-bit uint8 and int32 references, 10 and 12 bits), "
+        f"{MC_REPEATS} runs each; {launches} launches, one a run; the "
+        f"trash slot never written; max abs err 0")
 
 
 def time_mc(frame, ref_flat, lanes, cfg, int_rate):
@@ -1262,7 +1278,8 @@ def phase_b7(dev):
     ITX_REPEATS runs, byte-equal to the plain route on the card
     (`_residuals_plain`, `residual_bucket` a bucket) and to its CPU run;
     on conformant levels also to the NumPy spec model; on extreme levels,
-    where the plain route wraps in int32, to the CPU run."""
+    where the plain route wraps in int32, and on spans of SPAN_BLOCKS
+    blocks (several CTAs each), to the CPU run."""
     from av1dec_tpu_torch.ops.kernels import itx
     from av1dec_tpu_torch.ops.spec import dequant
     from av1dec_tpu_torch.ops.spec import itx as S
@@ -1304,6 +1321,17 @@ def phase_b7(dev):
             wild = rng.integers(-(1 << 20), (1 << 20) + 1, (B, m))
             kinds["extreme"][0].append((wild.astype(np.int32), dcq, acq,
                                         tsz, tt))
+        # and spans of SPAN_BLOCKS blocks (the conformant blocks repeated,
+        # every other one's levels shuffled), several CTAs each
+        spans_of = []
+        for lv, dcq, acq, tsz, tt in kinds["spec"][0]:
+            if tt in SPAN_TYPES:
+                r = -(-SPAN_BLOCKS // len(lv))
+                lv = lv.repeat(r, 0)[:SPAN_BLOCKS]
+                lv[1::2] = lv[1::2, ::-1]
+                spans_of.append((lv, dcq.repeat(r)[:SPAN_BLOCKS],
+                                 acq.repeat(r)[:SPAN_BLOCKS], tsz, tt))
+        kinds["spans"] = (spans_of, None)
         for kind, (buckets, spec) in kinds.items():
             buf, spans, words = itx.pack_buckets(buckets)
             cpu = itx.residuals_packed(torch.as_tensor(buf), spans, words,
@@ -1331,7 +1359,8 @@ def phase_b7(dev):
     log(f"kernel itx: byte-equal to the plain route on the card, to its CPU "
         f"run and to the NumPy spec on {n} (tx_size, tx_type, bit depth) "
         f"cases (every valid transform at 8, 10 and 12 bits, one call a bit "
-        f"depth), and to the plain route and its CPU run on extreme levels; "
+        f"depth), and to the plain route and its CPU run on extreme levels "
+        f"and on spans of {SPAN_BLOCKS} blocks (several CTAs each); "
         f"{ITX_REPEATS} runs each, {launches} launches, one a call; max abs "
         f"err 0")
 

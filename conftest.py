@@ -17,6 +17,11 @@
    their own, at the head of the queue: the workers order the files
    with those first (the other files by their number of tests, as xdist
    would), and the controller keeps that order.
+3. Give each worker's torch one intra-op thread.  Each torch process
+   otherwise starts a thread a core, so n workers run n x cores threads
+   on the cores, and every parallel torch op waits for its slowest
+   thread: the four MC and B7 test files took 135-147 s of summed test
+   time in 4 workers, 86 s with one thread a worker.
 
 A run without `-n` (or with `-n 0`) is left as it is.
 """
@@ -33,7 +38,10 @@ _SLOW_FILES = ("tests/test_sharded.py",)
 
 def pytest_configure(config):
     if hasattr(config, "workerinput"):
-        return  # an xdist worker: the controller has built it
+        # an xdist worker: the controller has built the library
+        import torch
+        torch.set_num_threads(1)
+        return
     if not getattr(config.option, "numprocesses", None):
         return  # one process: the fixture builds it
     config.option.loadscopereorder = False  # keep the workers' order

@@ -2,29 +2,39 @@
 // kernels of av1dec_tpu_torch/csrc/ use (wavefront_scan.cu, mc.cu,
 // itx.cu), so that g++ compiles the exact source and runs its kernels on
 // the host (tests/test_torch_scan_shim.py, tests/test_torch_mc_shim.py,
-// tests/test_torch_itx_shim.py).  The test puts two one-line headers,
-// cuda_runtime.h and cuda/atomic, that include this file on the include
-// path, and compiles with -std=c++20 -pthread -DCUDA_CPU_SHIM_MAIN (and
-// -DCUDA_CPU_SHIM_ENTRY=name for a kernel other than the scan).
+// tests/test_torch_itx_shim.py).  The test puts three one-line headers,
+// cuda_runtime.h, cuda_pipeline.h and cuda/atomic, that include this file
+// on the include path, and compiles with -std=c++20 -pthread
+// -DCUDA_CPU_SHIM_MAIN (and -DCUDA_CPU_SHIM_ENTRY=name for a kernel other
+// than the scan).
 //
 // A thread block is a process (fork), so that `__shared__`, which is
 // `static` here, is the block's own, and the blocks of a launch run at
-// once; a CUDA thread is a thread of that process.  With 0 resident
-// blocks (`cuda_cpu_shim_resident`), for kernels whose blocks never wait
-// on each other, the blocks run one after another in this process, by
-// one set of threads that meet at a barrier between blocks.  The buffers the
+// once; a CUDA thread is a thread of that process.  With 0 or fewer
+// resident blocks (`cuda_cpu_shim_resident`), for kernels whose blocks
+// never wait on each other and whose threads wait only at barriers, the
+// blocks run one after another in this process, by one set of CUDA
+// threads that meet at a barrier between blocks, each a fiber
+// (ucontext) of this one OS thread that hands over to the next at every
+// barrier.  The buffers the
 // blocks write (the frame and the counters) are mapped shared by the
-// runner (main, below).  __syncthreads and the warp shuffles are barriers;
-// atomicAdd, cuda::atomic_ref and __threadfence are the host's atomics and
-// fences; __ldcg is a plain (relaxed atomic) load; __nanosleep yields;
+// runner (main, below).  __syncthreads, __syncwarp and __shfl_xor_sync
+// are barriers of the block's or the warp's threads; cp.async
+// (__pipeline_memcpy_async) is a memcpy, so __pipeline_commit and
+// __pipeline_wait_prior do nothing; a kernel's dynamic shared memory is
+// cuda_cpu_shim_dynamic_smem(); atomicAdd, cuda::atomic_ref and
+// __threadfence are the host's atomics and fences; __ldcg is a plain
+// (relaxed atomic) load, __ldg a load; __nanosleep yields;
 // %globaltimer is the steady clock; __trap aborts the block, and the
 // launch then returns an error.  The device has one SM, on which
-// `cuda_cpu_shim_resident` blocks are resident.
+// |`cuda_cpu_shim_resident`| blocks are resident (the occupancy query's
+// answer).
 #pragma once
 
 #include <sched.h>
 #include <sys/mman.h>
 #include <sys/wait.h>
+#include <ucontext.h>
 #include <unistd.h>
 
 #include <atomic>
@@ -34,7 +44,9 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
+#include <new>
 #include <string>
 #include <thread>
 #include <vector>
@@ -81,7 +93,8 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 template <class F>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
                                                           size_t) {
-  *n = cuda_cpu_shim_resident;
+  *n = cuda_cpu_shim_resident < 0 ? -cuda_cpu_shim_resident
+                                  : cuda_cpu_shim_resident;
   return cudaSuccess;
 }
 
@@ -94,16 +107,68 @@ inline T max(T a, T b) {
   return a < b ? b : a;
 }
 
+// The CUDA threads of a launch whose blocks run one after another, as
+// fibers of this one OS thread: each runs until it waits at a barrier or
+// ends, then the next one runs, so that the launch needs no core of its
+// own a thread.
+struct CudaCpuShimFibers {
+  static constexpr size_t kStack = 1 << 18;
+  std::vector<ucontext_t> ctx;
+  std::vector<std::unique_ptr<char[]>> stacks;
+  std::vector<unsigned> block_of;  // the block each one is in
+  std::vector<char> done;
+  ucontext_t main;
+  int cur = 0;
+};
+inline CudaCpuShimFibers* cuda_cpu_shim_fibers = nullptr;
+
+// A barrier of `count` threads: OS threads wait in a std::barrier,
+// fibers hand over to the next fiber until the last one arrives.
+struct CudaCpuShimBarrier {
+  explicit CudaCpuShimBarrier(int count) : os(count), count(count) {}
+  void arrive_and_wait() {
+    auto* f = cuda_cpu_shim_fibers;
+    if (f == nullptr) {
+      os.arrive_and_wait();
+      return;
+    }
+    const unsigned g = gen;
+    if (++arrived == count) {
+      arrived = 0;
+      ++gen;
+      return;
+    }
+    while (gen == g) swapcontext(&f->ctx[f->cur], &f->main);
+  }
+  std::barrier<> os;
+  int count, arrived = 0;
+  unsigned gen = 0;
+};
+
 // the barriers of the block this process runs
 struct CudaCpuShimBlock {
-  std::unique_ptr<std::barrier<>> block;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::unique_ptr<CudaCpuShimBarrier> block;
+  std::vector<std::unique_ptr<CudaCpuShimBarrier>> warps;
   int shfl[32][32];
+  std::vector<long long> dynamic_smem;  // the launch's bytes, 8-aligned
 };
 inline CudaCpuShimBlock* cuda_cpu_shim_block = nullptr;
 
+// The block's dynamic shared memory (`extern __shared__` on the card).
+inline void* cuda_cpu_shim_dynamic_smem() {
+  return cuda_cpu_shim_block->dynamic_smem.data();
+}
+
 inline void __syncthreads() {
   cuda_cpu_shim_block->block->arrive_and_wait();
+}
+// __syncwarp calls of the launch's threads, over all its blocks (main
+// maps it shared, so that forked blocks count into it)
+inline std::atomic<long long>* cuda_cpu_shim_warp_syncs = nullptr;
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  if (cuda_cpu_shim_warp_syncs)
+    cuda_cpu_shim_warp_syncs->fetch_add(1, std::memory_order_relaxed);
+  cuda_cpu_shim_block->warps[threadIdx.x >> 5]->arrive_and_wait();
 }
 inline int __shfl_xor_sync(unsigned, int v, int lane_mask) {
   const unsigned warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -118,6 +183,17 @@ template <class T>
 inline T __ldcg(const T* p) {
   return __atomic_load_n(p, __ATOMIC_RELAXED);
 }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+// cp.async: the copy is done at once, so a wait has nothing to wait for
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -156,33 +232,66 @@ struct cudaLaunchConfig_t {
   cudaStream_t stream;
 };
 
-// Runs the config's grid of kernel f, each block a forked process of
-// blockDim.x threads, all at once; waits for them.  An error if a block
-// failed.
+// The body of each fiber of a launch whose blocks run one after another
+// (set by cudaLaunchKernelEx: its thread index runs every block).
+inline std::function<void(unsigned)> cuda_cpu_shim_fiber_body;
+
+inline void cuda_cpu_shim_fiber_main() {
+  cuda_cpu_shim_fiber_body(static_cast<unsigned>(cuda_cpu_shim_fibers->cur));
+  cuda_cpu_shim_fibers->done[cuda_cpu_shim_fibers->cur] = 1;
+}
+
+// Runs the config's grid of kernel f: with a resident count above 0,
+// each block a forked process of blockDim.x threads, all at once, and
+// waits for them (an error if a block failed); else the blocks one after
+// another in this process, their threads as fibers that meet at a
+// barrier between blocks.
 template <class A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
                                void (*f)(A), A arg) {
   const dim3 grid = config->gridDim, block = config->blockDim;
   std::fflush(nullptr);
-  if (cuda_cpu_shim_resident == 0) {
+  if (cuda_cpu_shim_resident <= 0) {
     blockDim = block;
     gridDim = grid;
     CudaCpuShimBlock state;
-    state.block = std::make_unique<std::barrier<>>(block.x);
+    state.block = std::make_unique<CudaCpuShimBarrier>(block.x);
+    state.dynamic_smem.resize((config->dynamicSmemBytes + 7) / 8);
     for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
-      state.warps.push_back(std::make_unique<std::barrier<>>(32));
+      state.warps.push_back(std::make_unique<CudaCpuShimBarrier>(32));
     cuda_cpu_shim_block = &state;
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block.x; ++t)
-      threads.emplace_back([=, &state] {
+    CudaCpuShimFibers fibers;
+    fibers.ctx.resize(block.x);
+    fibers.block_of.assign(block.x, 0);
+    fibers.done.assign(block.x, 0);
+    cuda_cpu_shim_fiber_body = [&](unsigned t) {
+      for (unsigned b = 0; b < grid.x; ++b) {
+        fibers.block_of[t] = blockIdx.x = b;
+        f(arg);
+        state.block->arrive_and_wait();
+      }
+    };
+    for (unsigned t = 0; t < block.x; ++t) {
+      fibers.stacks.emplace_back(new char[CudaCpuShimFibers::kStack]);
+      ucontext_t& c = fibers.ctx[t];
+      getcontext(&c);
+      c.uc_stack.ss_sp = fibers.stacks.back().get();
+      c.uc_stack.ss_size = CudaCpuShimFibers::kStack;
+      c.uc_link = &fibers.main;
+      makecontext(&c, cuda_cpu_shim_fiber_main, 0);
+    }
+    cuda_cpu_shim_fibers = &fibers;
+    for (unsigned live = block.x; live > 0;) {
+      for (unsigned t = 0; t < block.x; ++t) {
+        if (fibers.done[t]) continue;
+        fibers.cur = static_cast<int>(t);
         threadIdx.x = t;
-        for (unsigned b = 0; b < grid.x; ++b) {
-          blockIdx.x = b;
-          f(arg);
-          state.block->arrive_and_wait();
-        }
-      });
-    for (auto& th : threads) th.join();
+        blockIdx.x = fibers.block_of[t];
+        swapcontext(&fibers.main, &fibers.ctx[t]);
+        if (fibers.done[t]) --live;
+      }
+    }
+    cuda_cpu_shim_fibers = nullptr;
     cuda_cpu_shim_block = nullptr;
     return cudaSuccess;
   }
@@ -194,9 +303,10 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
       blockDim = block;
       gridDim = grid;
       CudaCpuShimBlock state;
-      state.block = std::make_unique<std::barrier<>>(block.x);
+      state.block = std::make_unique<CudaCpuShimBarrier>(block.x);
+      state.dynamic_smem.resize((config->dynamicSmemBytes + 7) / 8);
       for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
-        state.warps.push_back(std::make_unique<std::barrier<>>(32));
+        state.warps.push_back(std::make_unique<CudaCpuShimBarrier>(32));
       cuda_cpu_shim_block = &state;
       std::vector<std::thread> threads;
       for (unsigned t = 0; t < block.x; ++t)
@@ -233,8 +343,10 @@ extern "C" int wavefront_scan_floor(const long long*, int, void*);
 // at FILE's bytes (mapped shared when SHARED is 1, and then written back
 // to FILE.out after the launch).  ENTRY: scan or floor, or anything with
 // CUDA_CPU_SHIM_ENTRY, which is then called; RESIDENT 0 runs the blocks
-// one after another; TICKETS is the entry's int argument.  Prints the
-// entry's return code and exits with it.
+// one after another (RESIDENT -n too, with n blocks resident); TICKETS
+// is the entry's int argument.  Prints on
+// stderr the __syncwarp calls of the launch's threads, then the entry's
+// return code, and exits with it.
 int main(int argc, char** argv) {
   if (argc != 5) return 2;
   const std::string dir = argv[1];
@@ -264,9 +376,12 @@ int main(int argc, char** argv) {
     std::fseek(f, 0, SEEK_END);
     const size_t bytes = std::ftell(f);
     std::fseek(f, 0, SEEK_SET);
-    void* p = is_shared ? mmap(nullptr, bytes + 1, PROT_READ | PROT_WRITE,
+    // 16 bytes of slack: a kernel may read the aligned 16-byte chunk
+    // that holds the buffer's last byte (malloc's and mmap's buffers
+    // start aligned)
+    void* p = is_shared ? mmap(nullptr, bytes + 16, PROT_READ | PROT_WRITE,
                                MAP_SHARED | MAP_ANONYMOUS, -1, 0)
-                        : std::malloc(bytes + 1);
+                        : std::calloc(bytes + 16, 1);
     if (p == nullptr || p == MAP_FAILED ||
         std::fread(p, 1, bytes, f) != bytes)
       return 2;
@@ -276,6 +391,11 @@ int main(int argc, char** argv) {
   }
   std::fclose(pf);
   const int tickets = std::atoi(argv[4]);
+  void* syncs = mmap(nullptr, sizeof(std::atomic<long long>),
+                     PROT_READ | PROT_WRITE, MAP_SHARED | MAP_ANONYMOUS, -1,
+                     0);
+  if (syncs == MAP_FAILED) return 2;
+  cuda_cpu_shim_warp_syncs = new (syncs) std::atomic<long long>(0);
 #ifdef CUDA_CPU_SHIM_ENTRY
   const int rc = CUDA_CPU_SHIM_ENTRY(params.data(), tickets, nullptr);
 #else
@@ -288,6 +408,8 @@ int main(int argc, char** argv) {
     if (!f || std::fwrite(b.p, 1, b.bytes, f) != b.bytes) return 2;
     std::fclose(f);
   }
+  std::fprintf(stderr, "cuda_cpu_shim: %lld warp barriers\n",
+               cuda_cpu_shim_warp_syncs->load());
   std::printf("%d\n", rc);
   return rc;
 }

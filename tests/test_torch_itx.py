@@ -17,7 +17,7 @@ on the CPU:
 - on a card (`gpu` marker): the kernel `csrc/itx.cu`, one launch a
   call, is byte-equal to the plain route on the card and to its CPU run
   on every valid transform at 8, 10 and 12 bits, conformant and extreme
-  levels.
+  levels, and on spans of 65 blocks that fill several CTAs.
 """
 import numpy as np
 import pytest
@@ -209,9 +209,14 @@ def test_cuda_residuals_match_plain(bd):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode "
                     "(run with `pytest -m gpu` on the card)")
-    for extreme in (False, True):
-        (buf, spans, words), _ = _packed_subset(bd, extreme,
-                                                T.valid_transforms(), B=4)
+    # every valid transform, 4 blocks each, conformant and
+    # extreme levels; and spans of 65 blocks (several CTAs, the last
+    # part-filled) of DCT, flipped ADST, identity and flipped 1-D types
+    multi = [c for c in T.valid_transforms() if c[1] in (0, 6, 9, 14, 15)]
+    for extreme, cases, B in ((False, T.valid_transforms(), 4),
+                              (True, T.valid_transforms(), 4),
+                              (False, multi, 65)):
+        (buf, spans, words), _ = _packed_subset(bd, extreme, cases, B=B)
         cpu = T.residuals_packed(torch.as_tensor(buf), spans, words, bd)
         dev = torch.as_tensor(buf, device="cuda")
         plain = T._residuals_plain(dev, spans, words, bd)

@@ -1,7 +1,7 @@
 """The residual kernel `csrc/itx.cu` (B7, one launch for every transform
 block of a call), compiled with g++ against the CPU shim
 `tests/cuda_cpu_shim.h` and run on the host: the exact source, its
-blocks one after another and its threads as threads.
+blocks one after another and its threads as fibers of one OS thread.
 
 - On every valid (tx_size, tx_type) at 8, 10 and 12 bits, all packed
   into one call as `residuals_device` packs a frame's buckets, the
@@ -9,6 +9,10 @@ blocks one after another and its threads as threads.
   then the inverse transform) and to the plain route
   (`_residuals_plain`, `residual_bucket` per bucket), on levels of a
   conformant range.
+- On spans of 2k + 1 blocks of every tx_size, k the blocks of one of the
+  kernel's CTAs (DCT, and the flipped ADST, identity and 1-D types where
+  they are valid), so that each span fills two CTAs and part of a
+  third, the same against the plain route.
 - On extreme levels (|level| up to 2^20), where the plain route wraps
   in int32, the kernel wraps the same way: byte-equal to the plain
   route.
@@ -119,6 +123,41 @@ def test_shim_matches_spec_and_plain(bd, shim, tmp_path):
     assert np.abs(got).max() > 0
 
 
+# transform types of the multi-CTA spans: DCT, FLIPADST both ways,
+# identity, and the 1-D types with a flip (where valid for the size)
+SPAN_TYPES = (0, 6, 9, 14, 15)
+
+
+def _blocks_per_cta(tsz):
+    """The blocks of one CTA of `itx.cu` (128 threads): a thread a coded
+    row and a thread a column, two for 32 and 64 points."""
+    w, h = S.TX_DIMS[tsz]
+    rows = min(h, 32) * (2 if w >= 32 else 1)
+    return 128 // max(rows, w * (2 if h >= 32 else 1))
+
+
+@pytest.mark.parametrize("bd", [8, 12])
+def test_shim_spans_over_several_ctas(bd, shim, tmp_path):
+    cases = [c for c in itx.valid_transforms() if c[1] in SPAN_TYPES]
+    assert {tsz for tsz, _ in cases} == set(range(len(S.TX_DIMS)))
+    rng = np.random.default_rng(60 + bd)
+    buckets = []
+    for lv, q, dc, ac, tsz, tt in _buckets(bd, rng, False):
+        if (tsz, tt) in cases:
+            n = 2 * _blocks_per_cta(tsz) + 1
+            r = -(-n // BLOCKS)
+            buckets.append((lv.repeat(r, 0)[:n], q.repeat(r)[:n],
+                            dc.repeat(r)[:n], ac.repeat(r)[:n], tsz, tt))
+    for b in buckets:
+        b[0][1::2] = rng.permuted(b[0][1::2], axis=1)
+    buf, spans, words = _packed(buckets, bd)
+    got = _kernel(shim, tmp_path, buf, spans, words, bd)
+    plain = itx._residuals_plain(torch.as_tensor(buf), spans, words,
+                                 bd).numpy()
+    np.testing.assert_array_equal(got, plain)
+    assert np.abs(got).max() > 0
+
+
 @pytest.mark.parametrize("bd", [8, 10, 12])
 def test_shim_extreme_levels_wrap_as_plain(bd, shim, tmp_path):
     rng = np.random.default_rng(50 + bd)
@@ -163,6 +202,8 @@ def test_itx_constants_locked():
     assert _table(src, "kTxScale") == [itx._TX_SCALE.get(t, 0)
                                        for t in range(len(S.TX_DIMS))]
     assert _table(src, "kTx1d") == [v for t in range(16) for v in S.TX_1D[t]]
+    assert int(re.search(r"kMaxSpans = (\d+);", src).group(1)) == \
+        itx.MAX_SPANS >= len(itx.valid_transforms())
     assert f"kNewSqrt2 = {S.NEW_SQRT2};" in src
     assert f"kNewInvSqrt2 = {S.NEW_INV_SQRT2};" in src
     fns, argtypes = cuda_build.KERNELS["itx"]

@@ -17,15 +17,16 @@ exactly (CPU backend):
   on the device path of every committed small stream that has one (the
   kernel `csrc/mc.cu` runs its blocks in no order);
 - on a card (`gpu` marker): the kernel, one launch a pass, is byte-equal
-  to `_mc_plain` on the seeded lanes and on the stream lanes of the
-  card's own decode."""
+  to `_mc_plain` on the seeded lanes (also in reference pieces larger
+  than any window, uint8 and int32 references) and on the stream lanes
+  of the card's own decode."""
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import (decode_capture, jax_refs, manifest,
-                                mc_lane_pixels, parse, seeded_mc_lanes,
-                                small_streams)
+from torch_port_helpers import (LARGE_PIECES, decode_capture, jax_refs,
+                                manifest, mc_lane_pixels, parse,
+                                seeded_mc_lanes, small_streams)
 
 # committed small streams whose coded frames include inter frames on the
 # device path with inter blocks (an MC pass); the other inter streams'
@@ -176,12 +177,15 @@ def test_cuda_mc_matches_plain_on_seeded_lanes(bd):
     from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
                                                         upload_lanes)
     _need_card()
-    rng = np.random.default_rng(100 + bd)
-    frame0, pieces, lanes = seeded_mc_lanes(bd, rng)
-    ref = pack_ref_flat(pieces, "cuda")
-    cfg, rows = upload_lanes(lanes, bd, "cuda")
-    _card_check(frame0, ref, rows, cfg)
-    _card_check(frame0, ref.to(torch.int32), rows, cfg)
+    # the default pieces (most window rows clamped), then pieces larger
+    # than any window (most rows copied with cp.async, at every offset)
+    for seed, kw in ((100, {}), (400, LARGE_PIECES)):
+        rng = np.random.default_rng(seed + bd)
+        frame0, pieces, lanes = seeded_mc_lanes(bd, rng, **kw)
+        ref = pack_ref_flat(pieces, "cuda")
+        cfg, rows = upload_lanes(lanes, bd, "cuda")
+        _card_check(frame0, ref, rows, cfg)
+        _card_check(frame0, ref.to(torch.int32), rows, cfg)
 
 
 @pytest.mark.gpu

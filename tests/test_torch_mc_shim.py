@@ -1,7 +1,8 @@
 """The MC kernel `csrc/mc.cu` (one launch for every lane of a frame's MC
 pass), compiled with g++ against the CPU shim `tests/cuda_cpu_shim.h`
-and run on the host: the exact source, its blocks one after another and
-its threads as threads.
+and run on the host: the exact source, its blocks one after another
+(one block, unless a test names more resident) and its threads as
+fibers of one OS thread.
 
 - On seeded lanes of every tile size T from 4 to 128, single-list,
   average and distance-weighted compound, motion vectors past every edge
@@ -9,12 +10,19 @@ its threads as threads.
   int32 references), 10 and 12 bits, the kernel's frame is byte-equal
   to the plain pass `_mc_plain`'s; the frame starts random, so a lane
   that writes outside its window shows, and the trash slot is never
-  written.
+  written.  The same on seeded lanes in reference pieces larger than
+  any window, where most window rows need no clamp (the kernel copies
+  those with cp.async, 8-bit rows as the 16-byte chunks around them, at
+  every offset in a chunk), beside rows past the edges.
+- The persistent grid takes each stage (an item's list) once, with more
+  items than warps, in 1, 2 and 3 blocks: every lane pixel is written
+  and no other, and the warp barriers the shim counts are the kernel's
+  two a stage for exactly the pass's stages.
 - On the real lanes of every inter frame on the device path of
   `lowdelay`, `interbd10`, `c4`, `c5` (compound) and `masked`, the
   same.
 - The source's constants (lane fields, parameters, bucket and tile
-  limits) are the Python side's.
+  limits, the __constant__ filter table) are the Python side's.
 
 Skips when g++ is missing (decided inside the tests).
 """
@@ -25,8 +33,9 @@ import pytest
 import torch
 
 from av1dec_tpu_torch.ops.kernels import mc
-from torch_port_helpers import (_ROOT, decode_capture, seeded_mc_lanes,
-                                shim_build, shim_run)
+from torch_port_helpers import (_ROOT, LARGE_PIECES, decode_capture,
+                                mc_lane_pixels, seeded_mc_lanes, shim_build,
+                                shim_run)
 
 _CU = f"{_ROOT}/av1dec_tpu_torch/csrc/mc.cu"
 TRASH = -7  # the trash slot's value before the pass
@@ -40,21 +49,28 @@ def shim(tmp_path_factory):
     return exe
 
 
-def _check(exe, d, frame0, ref_flat, lanes, cfg):
-    """The shim's pass == `_mc_plain`'s on a [frame0, trash] buffer; the
-    trash slot untouched.  Returns the pixels the pass changed."""
+def _run(exe, d, frame0, ref_flat, lanes, cfg, resident=0):
+    """The shim's pass on a [frame0, trash] buffer, byte-equal to
+    `_mc_plain`'s, the trash slot untouched.  Returns (the frame, the
+    warp barriers of the launch)."""
     frame = torch.as_tensor(np.append(frame0, TRASH).astype(np.int32))
     plain = frame.clone()
     mc._mc_plain(plain, ref_flat, lanes, cfg)
     buckets = tuple(b for b in cfg[0] if b[2] > 0)
     rc, got, err = shim_run(exe, d, mc._params(frame, ref_flat, lanes,
                                                (buckets, cfg[1])),
-                            len(buckets), {0})
+                            len(buckets), {0}, resident=resident)
     assert rc == 0, err
     got = np.frombuffer(got[0], np.int32)
     np.testing.assert_array_equal(got[:-1], plain.numpy()[:-1])
     assert got[-1] == TRASH
-    return int((got[:-1] != frame0).sum())
+    return got[:-1], int(re.search(r"(\d+) warp barriers", err).group(1))
+
+
+def _check(exe, d, frame0, ref_flat, lanes, cfg):
+    """`_run`; returns the pixels the pass changed."""
+    got, _ = _run(exe, d, frame0, ref_flat, lanes, cfg)
+    return int((got != frame0).sum())
 
 
 @pytest.mark.parametrize("bd,ref", [(8, "uint8"), (8, "int32"),
@@ -69,6 +85,58 @@ def test_shim_matches_plain_on_seeded_lanes(bd, ref, shim, tmp_path):
     assert {(T, c) for T, c, _ in cfg[0]} == {
         (T, c) for T in (4, 8, 16, 32, 64, 128) for c in (0, 1)}
     assert _check(shim, tmp_path, frame0, ref_flat, rows, cfg) > 0
+
+
+@pytest.mark.parametrize("bd,ref", [(8, "uint8"), (8, "int32"),
+                                    (10, "int32"), (12, "int32")])
+def test_shim_matches_plain_on_seeded_lanes_inside_the_reference(
+        bd, ref, shim, tmp_path):
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    rng = np.random.default_rng(400 + bd)
+    frame0, pieces, lanes = seeded_mc_lanes(bd, rng, **LARGE_PIECES)
+    ref_flat = pack_ref_flat(pieces, "cpu").to(getattr(torch, ref))
+    cfg, rows = upload_lanes(lanes, bd, "cpu")
+    # windows (of a lane of T <= 32, or of a 32 x 32 tile of a lane) with
+    # no column clamp, and windows past an edge, in every bucket
+    for (T, comp), r in lanes.items():
+        t = min(T, 32)
+        for s in "01"[:1 + comp]:
+            cx, lx = r[:, mc._MF["cx" + s]], r[:, mc._MF["lx" + s]]
+            inside = np.array([(cx + ox >= 0) & (cx + ox + t + 6 <= lx)
+                               for ox in range(0, T, t)])
+            assert inside.any() and not inside.all(), (T, comp)
+    assert _check(shim, tmp_path, frame0, ref_flat, rows, cfg) > 0
+
+
+def _items(T, n):
+    """Items of a bucket: 32 / T lanes of T <= 32, or a 32 x 32 tile of a
+    lane of T = 64 or 128."""
+    return -(-n // (32 // T)) if T <= 32 else n * (T // 32) ** 2
+
+
+@pytest.mark.parametrize("resident", [0, -2, -3])
+def test_shim_persistent_grid_takes_each_stage_once(resident, shim,
+                                                    tmp_path):
+    from av1dec_tpu_torch.pipeline.device_inter import (pack_ref_flat,
+                                                        upload_lanes)
+    rng = np.random.default_rng(500)
+    frame0, pieces, lanes = seeded_mc_lanes(8, rng)
+    cfg, rows = upload_lanes(lanes, 8, "cpu")
+    # 8 warps a block; the shim's one SM holds |resident| blocks (0: one),
+    # run one after another
+    warps = 8 * max(-resident, 1)
+    assert sum(_items(T, n) for T, _, n in cfg[0]) > 4 * warps
+    frame0[:] = TRASH  # no prediction equals it, so each write shows
+    got, barriers = _run(shim, tmp_path, frame0, pack_ref_flat(pieces,
+                                                               "cpu"),
+                         rows, cfg, resident)
+    px = mc_lane_pixels(lanes)
+    written = np.flatnonzero(got != TRASH)
+    np.testing.assert_array_equal(written, np.sort(px))
+    # two a list of each item, in each of the warp's 32 threads
+    assert barriers == 32 * 2 * sum(_items(T, n) * (1 + comp)
+                                    for T, comp, n in cfg[0])
 
 
 @pytest.mark.parametrize("name", ["lowdelay", "interbd10", "c4", "c5",
@@ -119,6 +187,10 @@ def test_mc_constants_locked():
     assert int(re.search(r"kMaxT = (\d+);", src).group(1)) == \
         max(MC_BUCKETS)
     assert mc._FTAB.shape == (6 * 16, 8)
+    body = re.search(r"kFtab\[[^]]*\] = \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    assert [int(v) for v in re.findall(r"-?\d+", body)] == \
+        mc._FTAB.reshape(-1).tolist()
     fns, argtypes = cuda_build.KERNELS["mc"]
     assert fns == ("mc_frame",)
     sig = re.search(r'extern "C" int mc_frame\((.*?)\)', src,

@@ -72,10 +72,21 @@ def parse(name, pkg):
     return out
 
 
+_CAPTURED = {}
+
+
 def decode_capture(name):
-    """Decode a committed stream with the port's Decoder on the CPU.
-    Returns (display MD5s, Decoder.stats, the DeviceRecon of every coded
-    frame, in coding order)."""
+    """Decode a committed stream with the port's Decoder on the CPU, once
+    a stream and process.  Returns (display MD5s, Decoder.stats, the
+    DeviceRecon of every coded frame, in coding order), new lists of the
+    memoised decode's objects, which the callers read and do not
+    change."""
+    if name not in _CAPTURED:
+        _CAPTURED[name] = _decode_capture(name)
+    return tuple(list(v) for v in _CAPTURED[name])
+
+
+def _decode_capture(name):
     from av1dec_tpu_torch import api
     from av1dec_tpu_torch.config import DecoderConfig
     seen = []
@@ -109,23 +120,30 @@ def jax_refs(refs):
 
 # (forward, backward) distance weights of distance-weighted compound
 QUANT_DIST_LOOKUP = [(9, 7), (11, 5), (12, 4), (13, 3)]
+# seeded_mc_lanes' arguments for reference pieces larger than a window of
+# T = 128 (135 x 135), of odd widths, so that rows start at every offset
+# of a 16-byte chunk, and 8 lanes a bucket of T > 32
+LARGE_PIECES = {"shapes": ((300, 333), (150, 177)), "big_lanes": 8}
 
 
-def seeded_mc_lanes(bd, rng):
+def seeded_mc_lanes(bd, rng, shapes=((40, 56), (23, 31)), big_lanes=4):
     """(frame0, ref pieces, lanes) covering every MC bucket, both lists,
     both compound kinds, the four clamp corners and all filter banks;
-    the lanes write disjoint pixels of frame0."""
+    the lanes write disjoint pixels of frame0.  `shapes`: the (h, w) of
+    the two reference pieces; the default's are smaller than most
+    windows, so most rows need a clamp, pieces larger than 128 + 7 put
+    most windows inside them.  Buckets of T <= 32 have 8 lanes, the
+    others `big_lanes` (4 or more); lanes 0-3 start past the corners."""
     from av1dec_tpu_torch.ops.kernels.mc import MC_FIELDS, _MF
     from av1dec_tpu_torch.pipeline.device_inter import MC_BUCKETS
     dt = np.uint8 if bd == 8 else np.uint16
-    shapes = [(40, 56), (23, 31)]        # (h, w) of two reference pieces
     pieces = [rng.integers(0, 1 << bd, s).astype(dt) for s in shapes]
-    rbs = [0, 40 * 56]
+    rbs = [0, shapes[0][0] * shapes[0][1]]
     post = 14 - (5 if bd == 12 else 3) - 7
     lanes, base = {}, 0
     for T in MC_BUCKETS:
         for comp in (0, 1):
-            N = 8 if T <= 32 else 4
+            N = 8 if T <= 32 else big_lanes
             rows = np.zeros((N, len(MC_FIELDS)), np.int64)
             stride = 4 * T
             for i in range(N):
@@ -189,12 +207,13 @@ def shim_build(d, source, entry=None):
         return None
     os.makedirs(d / "cuda", exist_ok=True)
     shim = os.path.join(_ROOT, "tests", "cuda_cpu_shim.h")
-    for name in ("cuda_runtime.h", os.path.join("cuda", "atomic")):
+    for name in ("cuda_runtime.h", "cuda_pipeline.h",
+                 os.path.join("cuda", "atomic")):
         (d / name).write_text(f'#include "{shim}"\n')
     cu = os.path.join(_ROOT, "av1dec_tpu_torch", "csrc", source + ".cu")
     (d / "main.cc").write_text(f'#include "{cu}"\n')
     exe = str(d / f"{source}_shim")
-    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread",
+    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread",
                     "-DCUDA_CPU_SHIM_MAIN"] +
                    ([f"-DCUDA_CPU_SHIM_ENTRY={entry}"] if entry else []) +
                    ["-I", str(d), "-o", exe, str(d / "main.cc")],
