@@ -45,6 +45,7 @@ import torch
 
 from av1dec_tpu_torch import resolve_device
 from av1dec_tpu_torch.bindings import NativeParser
+from av1dec_tpu_torch.ops.kernels import deblock as _deblock
 from av1dec_tpu_torch.ops.kernels import wavefront as _wavefront
 from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
                                                     postfilter_batch,
@@ -162,6 +163,7 @@ class Decoder:
                                     "dev_planes": slot.dev_planes}
             t0 = time.monotonic()
             scans0 = _wavefront.launches
+            dbl0 = _deblock.launches
             dr = DeviceRecon(seq, hdr, plans, config=self.config,
                              refs=refs)
             dev_keep = host_reason = None
@@ -202,6 +204,9 @@ class Decoder:
                 "scan_launches": _wavefront.launches - scans0,
                 "scan_levels": (_wavefront.levels_completed()
                                 if _wavefront.launches > scans0 else 0),
+                # launches of the deblock kernel (a card's device path:
+                # two per frame with a loop-filter level)
+                "deblock_launches": _deblock.launches - dbl0,
             })
             slot = _Slot(planes=planes,
                          width=hdr["upscaled_width"],

@@ -30,6 +30,7 @@ All pixel math is int32, bit-exact with the JAX package.
 import numpy as np
 import torch
 
+from av1dec_tpu_torch.ops.kernels.cuda_build import launch
 from av1dec_tpu_torch.ops.spec.cdef import (CDEF_VERY_LARGE, DIRECTIONS,
                                             DIV_TABLE)
 
@@ -261,8 +262,6 @@ def cdef_frame(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd, damping,
                           damping, subx, suby)
     if dev.type != "cuda":
         raise ValueError(f"cdef_frame: unsupported device {dev}")
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    lib = load_kernel("cdef_frame")
     H, W = planes[0].shape
     if H % 8 or W % 8 or len(planes) not in (1, 3):
         raise ValueError(f"cdef_frame: needs 1 or 3 planes and a luma "
@@ -280,15 +279,12 @@ def cdef_frame(planes, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd, damping,
     outs = [torch.empty(p.shape, dtype=torch.int32, device=dev)
             for p in src]
     absent = [None] * (3 - len(src))  # U and V of a mono frame
-    with torch.cuda.device(dev):
-        err = lib.cdef_frame(
-            *[p.data_ptr() for p in src], *absent,
-            *[p.stride(0) for p in src], *[0] * len(absent),
-            *[o.data_ptr() for o in outs], *absent,
-            *[g.data_ptr() for g in gates], H, W, len(src), bd, damping,
-            subx, suby, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cdef_frame launch failed: CUDA error {err}")
+    launch("cdef_frame", "cdef_frame", dev,
+           *[p.data_ptr() for p in src], *absent,
+           *[p.stride(0) for p in src], *[0] * len(absent),
+           *[o.data_ptr() for o in outs], *absent,
+           *[g.data_ptr() for g in gates], H, W, len(src), bd, damping,
+           subx, suby)
     frame_launches += 1
     return tuple(outs)
 
@@ -338,19 +334,14 @@ def cdef_shard(pads, y_pri_u, y_sec_u, uv_pri_u, uv_sec_u, bd, damping,
     if any(p.data_ptr() % 16 for p in pads):
         raise ValueError("cdef_shard: the bordered planes must start on "
                          "16 bytes")
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    lib = load_kernel("cdef_filter")
     outs = [torch.empty((h - 4, w - 4), dtype=torch.int32, device=dev)
             for h, w in shapes]
     absent = [None] * (3 - len(pads))  # U and V of a mono shard
-    with torch.cuda.device(dev):
-        err = lib.cdef_shard(
-            *[p.data_ptr() for p in pads], *absent,
-            *[o.data_ptr() for o in outs], *absent,
-            *[g.data_ptr() for g in gates], H, W, len(pads), bd, damping,
-            subx, suby, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cdef_shard launch failed: CUDA error {err}")
+    launch("cdef_filter", "cdef_shard", dev,
+           *[p.data_ptr() for p in pads], *absent,
+           *[o.data_ptr() for o in outs], *absent,
+           *[g.data_ptr() for g in gates], H, W, len(pads), bd, damping,
+           subx, suby)
     launches += 1
     return tuple(outs)
 

@@ -6,8 +6,9 @@ use, or when it or a header of `csrc/` is newer than its library (one
 nvcc process per source, all started together), and loaded with
 ctypes.  Nothing here runs at import: this module is imported on
 machines without `nvcc` or a card.  A kernel that does not build
-raises.
+raises.  `launch` calls a kernel's C entry on a card's current stream.
 """
+import contextlib
 import ctypes
 import fcntl
 import glob
@@ -16,6 +17,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+import numpy as np
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -35,6 +39,9 @@ KERNELS = {
                        [_P, _I, _P]),
     "mc": (("mc_frame",), [_P, _I, _P]),
     "itx": (("itx_residuals",), [_P, _I, _P]),
+    "deblock": (("deblock_pass",), [_P, _I, _P]),
+    "superres": (("superres_frame",), [_P, _I, _P]),
+    "wiener": (("wiener_frame",), [_P, _I, _P]),
 }
 
 _loaded = {}
@@ -118,3 +125,51 @@ def load_kernel(name):
             fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def param_names(ints, per_item, items):
+    """A kernel's parameter names in its `enum Param` order: `ints`, then
+    each name of `per_item` once for each of `items` items, suffixed with
+    the item's index."""
+    return list(ints) + [f"{k}{i}" for k in per_item for i in range(items)]
+
+
+def param_list(names, params):
+    """The values of `params` (name -> tensor or int) in `names` order;
+    0 for a name it does not have (an item a call does not use)."""
+    return [params.get(k, 0) for k in names]
+
+
+@contextlib.contextmanager
+def no_device_sync(device):
+    """On a card, make any device->host synchronisation inside the block
+    raise (torch's sync debug mode "error"): a launch only enqueues
+    work, never waits for it."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def launch(name, entry, device, *args):
+    """Calls the C function `entry` of kernel `name` with `args`, then the
+    current stream of `device` (a card), under that device and
+    `no_device_sync`.  A list among `args` is passed as the address of
+    an int64 array of its items (a tensor's data pointer, or an int),
+    which lives until the call returns.  Raises RuntimeError when the
+    function returns an error."""
+    fn = getattr(load_kernel(name), entry)
+    arrays = [np.asarray([v.data_ptr() if torch.is_tensor(v) else int(v)
+                          for v in a], np.int64) if isinstance(a, list)
+              else a for a in args]
+    with torch.cuda.device(device), no_device_sync(device):
+        err = fn(*[a.ctypes.data if isinstance(a, np.ndarray) else a
+                   for a in arrays],
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

@@ -1,17 +1,21 @@
-"""Deblocking loop filter on the device — whole-plane torch passes.
-[SPEC §7.14]
+"""Deblocking loop filter on the device. [SPEC §7.14]
 
 Port of `av1dec_tpu.ops.kernels.deblock`.  Within one pass (all
 vertical edges, then all horizontal edges) the edge filters are
 independent (an edge's taps never read pixels another same-pass edge
 writes), so each pass is one data-parallel computation over an
-[H, W/4] edge lattice:
+[H, W/4] edge lattice.
+
+`deblock_planes` filters every plane of a frame.  A plane on a card runs
+the hand-written kernel `csrc/deblock.cu`, one launch a pass for every
+plane, so two a frame (counted in `launches`); a plane on the CPU runs
+the plain version `_deblock_plain`, whole-plane torch passes:
 
 - the 14 edge-crossing taps p6..q6 are 14 strided slices of the
   zero-padded plane;
 - masks and filters evaluate elementwise over the lattice;
-- written pixels are recombined by shifts and where() (each output
-  position has at most one writer);
+- written pixels are recombined by shifts and where() (the last writer
+  in a fixed order wins);
 - the horizontal pass runs the same code on the transposed plane.
 
 Edge decisions (filter length and level) come from the host as dense
@@ -19,6 +23,19 @@ per-4x4-cell maps (`ops.spec.deblock.build_deblock_maps`).  All int32,
 bit-exact with the JAX package.
 """
 import torch
+
+from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, param_list,
+                                                     param_names)
+
+# launches of the CUDA deblock kernel in this process (two a frame: one a
+# pass)
+launches = 0
+MAX_PLANES = 3
+# the kernel's int64 parameter array (`csrc/deblock.cu`, enum Param): the
+# pass's ints, then per plane its input, output, size and cell maps
+_PARAMS = param_names(["axis", "sharp", "bd", "nplanes"],
+                      ("src", "src_stride", "dst", "dst_stride", "h", "w",
+                       "flen", "lvl", "n4", "k4"), MAX_PLANES)
 
 
 def _thresholds(lvl, sharpness):
@@ -201,10 +218,74 @@ def _pass_axis1(plane, flen_c, lvl_c, sharpness, bd):
 def deblock_planes(planes, maps, sharpness, bd):
     """Both deblock passes for all planes.  `planes`: [H, W] int32
     tensors; `maps`: per plane ((flen_v, lvl_v), (flen_h, lvl_h)) int32
-    tensors on the planes' device; `sharpness`: int."""
+    tensors on the planes' device; `sharpness`: int.  Planes on a card
+    run the kernel, planes on the CPU the plain version."""
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return _deblock_plain(planes, maps, sharpness, bd)
+    if dev.type == "cuda":
+        return _deblock_kernel(planes, maps, sharpness, bd)
+    raise ValueError(f"deblock_planes: unsupported device {dev}")
+
+
+def _deblock_plain(planes, maps, sharpness, bd):
+    """The plain version: `_pass_axis1` over each plane and its
+    transpose, on any device (`deblock_planes`' arguments)."""
     outs = []
     for plane, ((fv, lv), (fh, lh)) in zip(planes, maps):
         x = _pass_axis1(plane.to(torch.int32), fv, lv, sharpness, bd)
         x = _pass_axis1(x.T, fh, lh, sharpness, bd).T
         outs.append(x)
     return tuple(outs)
+
+
+def _deblock_kernel(planes, maps, sharpness, bd):
+    """Both passes on the card: one `deblock_pass` launch a pass for every
+    plane, on the planes' device and its current stream, each counted in
+    `launches`.  The planes are read in place through their row stride;
+    returns new contiguous int32 planes.  Raises on inputs the kernel does
+    not take or a failed launch."""
+    global launches
+    dev = planes[0].device
+    if not 1 <= len(planes) <= MAX_PLANES or len(maps) != len(planes) or \
+            bd not in (8, 10, 12) or int(sharpness) not in range(8):
+        raise ValueError(f"deblock_planes: {len(planes)} planes, {len(maps)} "
+                         f"maps, {bd} bits, sharpness {sharpness}: the "
+                         f"kernel takes 1 to {MAX_PLANES} planes, 8, 10 or "
+                         f"12 bits, sharpness 0 to 7")
+    for p in planes:
+        if p.device != dev or p.dtype != torch.int32 or p.ndim != 2 or \
+                p.stride(1) != 1 or p.numel() == 0:
+            raise ValueError(f"deblock_planes: planes must be non-empty "
+                             f"int32 [H, W] rows on {dev}, got {p.dtype} "
+                             f"{tuple(p.shape)} on {p.device}")
+    for m in (m for pair in maps for d in pair for m in d):
+        if m.device != dev or m.dtype != torch.int32 or m.ndim != 2 or \
+                not m.is_contiguous():
+            raise ValueError(f"deblock_planes: maps must be contiguous "
+                             f"int32 [n4, k4] on {dev}")
+    sizes = [p.numel() for p in planes]
+    mid, out = (torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+                .split(sizes) for _ in range(2))
+    mid = [m.view(p.shape) for m, p in zip(mid, planes)]
+    out = [o.view(p.shape) for o, p in zip(out, planes)]
+    for axis, src, dst in ((0, planes, mid), (1, mid, out)):
+        launch("deblock", "deblock_pass", dev,
+               _params(axis, sharpness, bd, src, dst,
+                       [m[axis] for m in maps]), len(planes))
+        launches += 1
+    return tuple(out)
+
+
+def _params(axis, sharpness, bd, src, dst, maps):
+    """The kernel's parameters in `_PARAMS` order for one pass: tensors
+    where it takes a pointer, ints; a plane the frame does not have is 0
+    throughout."""
+    params = dict(axis=axis, sharp=int(sharpness), bd=bd, nplanes=len(src))
+    for i, (s, d, (flen, lvl)) in enumerate(zip(src, dst, maps)):
+        params.update({f"src{i}": s, f"src_stride{i}": s.stride(0),
+                       f"dst{i}": d, f"dst_stride{i}": d.stride(0),
+                       f"h{i}": s.shape[0], f"w{i}": s.shape[1],
+                       f"flen{i}": flen, f"lvl{i}": lvl,
+                       f"n4{i}": flen.shape[0], f"k4{i}": flen.shape[1]})
+    return param_list(_PARAMS, params)

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from av1dec_tpu_torch.ops.kernels.cuda_build import launch
 from av1dec_tpu_torch.ops.spec import itx as S
 
 # Tx_Scale by pixel count: (pels > 256) + (pels > 1024)
@@ -226,15 +227,7 @@ def _residuals_kernel(buf, spans, words, bd):
     out = torch.empty(words, dtype=torch.int32, device=dev)
     if blocks == 0:
         return out
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    fn = load_kernel("itx").itx_residuals
-    arr = np.asarray([v.data_ptr() if torch.is_tensor(v) else v
-                      for v in _params(out, buf, spans, bd)], np.int64)
-    with torch.cuda.device(dev):
-        err = fn(arr.ctypes.data, blocks,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"itx_residuals launch failed: CUDA error {err}")
+    launch("itx", "itx_residuals", dev, _params(out, buf, spans, bd), blocks)
     launches += 1
     return out
 

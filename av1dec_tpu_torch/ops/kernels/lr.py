@@ -17,8 +17,27 @@ boundary.)  Each distinct (source plane, source row, unit row) is
 filtered horizontally once: about one pass over the plane, plus the
 rows near stripe and unit-row boundaries.  Frames with a self-guided
 unit keep the host LR tail (`pipeline/device_recon.py` `finish_host`).
+
+`lr_wiener_planes` filters every Wiener plane of a frame.  Planes on a
+card run the hand-written kernel `csrc/wiener.cu`, one launch for every
+plane (counted in `launches`); planes on the CPU run the plain version
+`_wiener_plain`, `wiener_plane` a plane.
 """
 import torch
+
+from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, param_list,
+                                                     param_names)
+
+# launches of the CUDA Wiener kernel in this process (one a frame)
+launches = 0
+MAX_PLANES = 3
+# the argument tuple of a plane (`DeviceRecon._lr_wiener_args`)
+ARGS = ("uy", "ux", "tv", "th", "act", "vr", "inside")
+# the kernel's int64 parameter array (`csrc/wiener.cu`, enum Param): the
+# ints, then per plane its planes, output, size, arguments and unit grid
+_PARAMS = param_names(["bd", "nplanes"],
+                      ("cdef", "cdef_stride", "pre", "pre_stride", "out",
+                       "h", "w") + ARGS + ("ur", "uc"), MAX_PLANES)
 
 
 def _round2(x, n):
@@ -76,10 +95,85 @@ def wiener_plane(cdef_p, pre_p, args, bd):
 
 
 def lr_wiener_planes(planes, pre_planes, lr_args, bd):
-    """All planes; lr_args[p] is None for planes without restoration."""
+    """All planes; lr_args[p] is None for planes without restoration.
+    Planes on a card run the kernel, planes on the CPU the plain
+    version."""
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return _wiener_plain(planes, pre_planes, lr_args, bd)
+    if dev.type == "cuda":
+        return _wiener_kernel(planes, pre_planes, lr_args, bd)
+    raise ValueError(f"lr_wiener_planes: unsupported device {dev}")
+
+
+def _wiener_plain(planes, pre_planes, lr_args, bd):
+    """The plain version: `wiener_plane` on each plane with arguments, on
+    any device (`lr_wiener_planes`' arguments)."""
     outs = []
     for p, (plane, pre) in enumerate(zip(planes, pre_planes)):
         a = lr_args[p]
         outs.append(plane if a is None
                     else wiener_plane(plane, pre, a, bd))
     return outs
+
+
+def _wiener_kernel(planes, pre_planes, lr_args, bd):
+    """Every plane with arguments on the card in one `wiener_frame`
+    launch, on the planes' device and its current stream, counted in
+    `launches`; the others are returned as they are.  The planes are
+    read in place through their row stride.  Raises on inputs the kernel
+    does not take or a failed launch."""
+    global launches
+    dev = planes[0].device
+    todo = [p for p, a in enumerate(lr_args) if a is not None]
+    if not todo:
+        return list(planes)
+    if bd not in (8, 10, 12) or len(todo) > MAX_PLANES:
+        raise ValueError(f"lr_wiener_planes: {len(todo)} planes at {bd} "
+                         f"bits, the kernel takes up to {MAX_PLANES} at 8, "
+                         f"10 or 12")
+    for p in todo:
+        H, W = planes[p].shape
+        UR, UC = lr_args[p][4].shape
+        shapes = dict(uy=(H,), ux=(W,), tv=(UR, UC, 7), th=(UR, UC, 7),
+                      act=(UR, UC), vr=(7, H), inside=(7, H))
+        for t in (planes[p], pre_planes[p]):
+            if t.device != dev or t.dtype != torch.int32 or \
+                    t.shape != (H, W) or t.stride(1) != 1:
+                raise ValueError(f"lr_wiener_planes: plane {p} must be "
+                                 f"int32 [H, W] rows on {dev}, its pre-CDEF "
+                                 f"plane too")
+        for name, t in zip(ARGS, lr_args[p]):
+            want = torch.bool if name == "inside" else torch.int32
+            if t.device != dev or t.dtype != want or \
+                    tuple(t.shape) != shapes[name] or not t.is_contiguous():
+                raise ValueError(f"lr_wiener_planes: {name} of plane {p} "
+                                 f"must be contiguous {want} "
+                                 f"{list(shapes[name])} on {dev}")
+    sizes = [planes[p].numel() for p in todo]
+    outs = [o.view(planes[p].shape) for p, o in zip(
+        todo, torch.empty(sum(sizes), dtype=torch.int32,
+                          device=dev).split(sizes))]
+    launch("wiener", "wiener_frame", dev,
+           _params(bd, [(planes[p], pre_planes[p], o, lr_args[p])
+                        for p, o in zip(todo, outs)]), len(todo))
+    launches += 1
+    result = list(planes)
+    for p, o in zip(todo, outs):
+        result[p] = o
+    return result
+
+
+def _params(bd, items):
+    """The kernel's parameters in `_PARAMS` order for (plane, pre-CDEF
+    plane, output, arguments) items: tensors where it takes a pointer,
+    ints; a plane the frame does not have is 0 throughout."""
+    params = dict(bd=bd, nplanes=len(items))
+    for i, (cdef_p, pre_p, out, args) in enumerate(items):
+        params.update({f"cdef{i}": cdef_p, f"cdef_stride{i}": cdef_p.stride(0),
+                       f"pre{i}": pre_p, f"pre_stride{i}": pre_p.stride(0),
+                       f"out{i}": out, f"h{i}": cdef_p.shape[0],
+                       f"w{i}": cdef_p.shape[1], f"ur{i}": args[4].shape[0],
+                       f"uc{i}": args[4].shape[1]})
+        params.update({f"{k}{i}": t for k, t in zip(ARGS, args)})
+    return param_list(_PARAMS, params)

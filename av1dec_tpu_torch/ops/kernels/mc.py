@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from av1dec_tpu_torch.ops import inter_tables as T_
-from av1dec_tpu_torch.ops.kernels.wavefront import _no_device_sync
+from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, no_device_sync,
+                                                     param_list, param_names)
 
 # lane schedule fields (host packs [N, len(MC_FIELDS)] int32 rows)
 MC_FIELDS = [
@@ -58,9 +59,8 @@ launches = 0
 # the kernel's int64 parameter array (`csrc/mc.cu`, enum Param): pointers,
 # then ints, then per bucket its lane rows, T, compound flag and lanes
 MAX_BUCKETS = 12
-_PARAMS = (["frame", "ref", "ftab", "ref_len", "ref_bytes", "bd", "nb"] +
-           [f"{k}{b}" for k in ("rows", "t", "comp", "n")
-            for b in range(MAX_BUCKETS)])
+_PARAMS = param_names(["frame", "ref", "ftab", "ref_len", "ref_bytes", "bd",
+                       "nb"], ("rows", "t", "comp", "n"), MAX_BUCKETS)
 
 # all six filter banks as one [6*16, 8] table; lane hf/vf index rows
 _FTAB = np.asarray(T_.SUBPEL_FILTERS, np.int32).reshape(-1, 8)
@@ -155,7 +155,7 @@ def _mc_plain(frame, ref_flat, lanes, config):
     buckets, bd = config
     n = frame.shape[0] - 1
     ftab, ar = _consts(frame.device)
-    with _no_device_sync(frame.device):
+    with no_device_sync(frame.device):
         for (T, comp, _n) in buckets:
             _mc_bucket(frame, n, ref_flat, lanes[(T, comp)], T, comp, bd,
                        ftab, ar)
@@ -196,19 +196,11 @@ def _mc_kernel(frame, ref_flat, lanes, config):
             raise ValueError(f"mc_into: bucket ({T}, {comp}) must be "
                              f"contiguous int32 [{n}, {len(MC_FIELDS)}] "
                              f"lane rows on {dev}")
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    fn = load_kernel("mc").mc_frame
     with torch.cuda.device(dev):
         # the first `_consts` of a device uploads (a synchronising copy),
-        # so the parameters are made before the no-sync guard
-        arr = np.asarray([v.data_ptr() if torch.is_tensor(v) else v for v in
-                          _params(frame, ref_flat, lanes, (buckets, bd))],
-                         np.int64)
-        with _no_device_sync(dev):
-            err = fn(arr.ctypes.data, len(buckets),
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mc_frame launch failed: CUDA error {err}")
+        # so the parameters are made before `launch`'s no-sync guard
+        params = _params(frame, ref_flat, lanes, (buckets, bd))
+    launch("mc", "mc_frame", dev, params, len(buckets))
     launches += 1
 
 
@@ -223,7 +215,7 @@ def _params(frame, ref_flat, lanes, config):
     for b, (T, comp, n) in enumerate(buckets):
         params.update({f"rows{b}": lanes[(T, comp)], f"t{b}": T,
                        f"comp{b}": comp, f"n{b}": n})
-    return [params.get(k, 0) for k in _PARAMS]
+    return param_list(_PARAMS, params)
 
 
 def run_mc(frame0, ref_flat, lanes, config):

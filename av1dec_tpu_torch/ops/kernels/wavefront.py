@@ -45,12 +45,13 @@ All pixel math is int32, bit-exact with the JAX package.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 
+from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, no_device_sync,
+                                                     param_list)
 from av1dec_tpu_torch.ops.spec import intra
 from av1dec_tpu_torch.ops.tables_data import FILTER_INTRA_TAPS, SM_WEIGHTS
 from av1dec_tpu_torch.pipeline.wavefront import (MF_DC, MF_DIR, MF_FI, MF_H,
@@ -580,7 +581,7 @@ def _scan_plain(frame, packed, res_flat, pal_tensors, config, windows):
     n = frame.shape[0] - 1
     c = _consts(frame.device)
     ws, wc, flags = ws.tolist(), wc.tolist(), flags.tolist()
-    with _no_device_sync(frame.device):
+    with no_device_sync(frame.device):
         for st, cn, fl in zip(ws, wc, flags):
             for bi, (T, _bmax) in enumerate(buckets):
                 if cn[bi] == 0:
@@ -653,23 +654,15 @@ def _launch(entry, frame, packed, res_flat, pal_tensors, config, levels):
             (row >= rows_of[np.minimum(bucket, len(ts) - 1)]).any():
         raise ValueError("scan_into: the tickets name lanes beyond the "
                          "lane rows")
-    from av1dec_tpu_torch.ops.kernels.cuda_build import load_kernel
-    fn = getattr(load_kernel("wavefront_scan"), entry)
     live = lanes[lanes > 0]
     with torch.cuda.device(dev):
         # the first `_consts` of a device uploads (a synchronising copy),
-        # so the parameters are made before the no-sync guard
+        # so the parameters are made before `launch`'s no-sync guard
         counters = torch.zeros((len(live) + 1) * COUNTER_STRIDE,
                                dtype=torch.int32, device=dev)
-        ptrs = _params(frame, packed, res_flat, pal_tensors, config,
-                       tickets, counters)
-        arr = np.asarray([v.data_ptr() if torch.is_tensor(v) else v
-                          for v in ptrs], np.int64)
-        with _no_device_sync(dev):
-            err = fn(arr.ctypes.data, total,
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        params = _params(frame, packed, res_flat, pal_tensors, config,
+                         tickets, counters)
+    launch("wavefront_scan", entry, dev, params, total)
     return counters, live
 
 
@@ -689,7 +682,7 @@ def _params(frame, packed, res_flat, pal_tensors, config, tickets,
     for k, (t, _) in enumerate(buckets):
         params.update({f"rows{k}": packed[t], f"pal{k}": pal_tensors[t],
                        f"t{k}": t})
-    return [params.get(k, 0) for k in _PARAMS]
+    return param_list(_PARAMS, params)
 
 
 def levels_completed(scan=None):
@@ -700,19 +693,3 @@ def levels_completed(scan=None):
     counters, live = last_scan if scan is None else scan
     done = counters.view(-1, COUNTER_STRIDE)[1:, 0].cpu().numpy()
     return int((done == live).sum())
-
-
-@contextlib.contextmanager
-def _no_device_sync(device):
-    """On a card, make any device->host synchronisation inside the block
-    raise (torch's sync debug mode "error"): the window loop must only
-    enqueue work, never wait for it."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)

@@ -221,7 +221,7 @@ def _frames_run(args, dev, res):
     from av1dec_tpu_torch.api import display_md5
     from av1dec_tpu_torch.bindings import NativeParser
     from av1dec_tpu_torch.container import read_temporal_units
-    from av1dec_tpu_torch.ops.kernels import wavefront
+    from av1dec_tpu_torch.ops.kernels import deblock, wavefront
     from av1dec_tpu_torch.parallel.mesh import make_mesh
     from av1dec_tpu_torch.parallel.sharded_frames import \
         decode_frames_sharded
@@ -239,6 +239,7 @@ def _frames_run(args, dev, res):
     mesh = make_mesh(data=K)
     t0 = time.perf_counter()
     scans0 = wavefront.launches
+    dbl0 = deblock.launches
     frames = decode_frames_sharded(drs, mesh, device=dev)
     res["frames_s"] = time.perf_counter() - t0
     # this rank scanned frame `frame_index`: its scan kernel launches and
@@ -247,6 +248,7 @@ def _frames_run(args, dev, res):
     res["scan_launches"] = wavefront.launches - scans0
     res["scan_levels"] = (wavefront.levels_completed()
                           if res["scan_launches"] else 0)
+    res["deblock_launches"] = deblock.launches - dbl0
     res["frames"] = [
         display_md5(planes, dr.sch.bd, dr.hdr["upscaled_width"],
                     dr.hdr["frame_height"],

@@ -8,7 +8,9 @@ and, for inter frames, the MC lanes and reference pieces of their
 pass (`ops/kernels/mc.mc_into`, predictions straight into the frame
 buffer), then the batched wavefront scan (intra lanes and MF_INTER
 residual lanes) and, per frame, the postfilter chain slice -> deblock
--> CDEF -> superres -> Wiener LR -> narrowing cast (`dispatch_batch`).
+-> CDEF -> superres -> Wiener LR -> narrowing cast (`dispatch_batch`);
+on a card, deblock, CDEF, superres and Wiener LR are hand-written
+kernels (`ops/kernels/{deblock,cdef,superres,lr}.py`).
 Frames with a self-guided restoration unit finish LR on the host after
 the fetch (`finish_host`).
 
@@ -41,6 +43,7 @@ from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
 from av1dec_tpu_torch.ops.kernels.deblock import deblock_planes
 from av1dec_tpu_torch.ops.kernels.lr import lr_wiener_planes
 from av1dec_tpu_torch.ops.kernels.mc import mc_into
+from av1dec_tpu_torch.ops.kernels.superres import superres_planes
 from av1dec_tpu_torch.ops.kernels.wavefront import (_DEV_FIELDS,
                                                     plan_levels,
                                                     plan_windows, scan_into)
@@ -59,20 +62,6 @@ _log = logging.getLogger("av1dec_tpu_torch")
 def _bucket_for(w, h):
     m = max(w, h)
     return 16 if m <= 16 else 32 if m <= 32 else 64
-
-
-def _superres_dev(planes, sr_args, bd):
-    """Superres [SPEC §7.16]: per plane, horizontal 64-phase 8-tap
-    upscale — one gather (precomputed clamped tap columns) + 8
-    multiply-adds.  Twin of ops.spec.superres.upscale_plane_rows."""
-    outs = []
-    for p, (cols, taps) in zip(planes, sr_args):
-        src = p.to(torch.int32)
-        g = src[:, cols.reshape(-1).long()].reshape(
-            (src.shape[0],) + tuple(cols.shape))            # [H, dw, 8]
-        acc = (g * taps[None, :, :]).sum(-1, dtype=torch.int32)
-        outs.append(((acc + 64) >> 7).clamp(0, (1 << bd) - 1))
-    return outs
 
 
 def _postfilter_chain(frame, base, dbl_maps, gates, sr_args, lr_args, cfg):
@@ -96,10 +85,11 @@ def _postfilter_chain(frame, base, dbl_maps, gates, sr_args, lr_args, cfg):
         planes = list(cdef_dev.cdef_frame(
             tuple(planes), y_pri, y_sec, uv_pri, uv_sec, bd, damping,
             subx_c, suby_c))
-    if has_sr:
-        planes = _superres_dev(planes, sr_args, bd)
-        if pre is not None:
-            pre = _superres_dev(pre, sr_args, bd)
+    if has_sr:  # the final and the pre-CDEF planes in one call
+        n = len(planes)
+        up = superres_planes(planes + (pre or []),
+                             tuple(sr_args) * (1 + (pre is not None)), bd)
+        planes, pre = up[:n], (up[n:] if pre is not None else None)
     if has_lr:  # all-Wiener restoration on device [SPEC §7.17.4]
         planes = lr_wiener_planes(planes, pre, lr_args, bd)
         pre = None  # consumed: host tail has nothing left to do

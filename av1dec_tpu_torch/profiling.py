@@ -10,7 +10,8 @@ then the calls it times and a second marker; `complete_events` keeps
 only what lies between the two markers, and takes the trace again, with
 a longer wait each time, until what it kept is whole.  Where no trace
 is whole, the calls of a named kernel are timed from what the traces
-kept of their end (`tail_events`).
+kept of their end (`tail_events`); where no trace kept even that,
+`complete_events` raises `RecordsLost`.
 """
 import time
 
@@ -18,6 +19,10 @@ MARKER = "spin_kernel"  # the kernel that torch.cuda._sleep launches
 LEAD = 10  # calls of fn() before the first marker
 SETTLE_S = 0.05  # seconds a trace waits before its first call
 ATTEMPTS = 10  # traces `complete_events` takes before it gives up
+
+
+class RecordsLost(RuntimeError):
+    """Every trace `complete_events` took lost records."""
 
 
 def device_events(fn, iters, settle=SETTLE_S):
@@ -88,7 +93,7 @@ def complete_events(fn, iters, name=None, agree=None):
     record only lowers the count.  Where the calls are collective,
     `agree(ok)` turns this process's verdict into its group's, so that
     every rank takes its trace again, and falls back, together.  Raises
-    RuntimeError when neither gives events."""
+    RecordsLost when neither gives events."""
     counts = []
     tail = None
     for n in range(1, ATTEMPTS + 1):
@@ -115,6 +120,6 @@ def complete_events(fn, iters, name=None, agree=None):
             return tail, ATTEMPTS, False
     what = f"{iters} {name} kernels" if name else \
         f"as many events twice (counts {counts})"
-    raise RuntimeError(f"the profiler lost records in each of {ATTEMPTS} "
+    raise RecordsLost(f"the profiler lost records in each of {ATTEMPTS} "
                        f"traces of {iters} calls: no marker pair and "
                        f"{what}")

@@ -56,6 +56,28 @@ Phases (each raises on failure, so the script exits non-zero):
      runs; on extreme levels, where the plain route wraps in int32,
      and on spans of 65 blocks of every tx_size (several CTAs each, the
      last part-filled), against the plain route and its CPU run;
+   - the postfilter kernels, each against its plain version on the card,
+     byte-equal, POST_REPEATS runs a check: `deblock` (both passes of
+     every plane, one launch a pass) against `_deblock_plain` on seeded
+     61x83 frames in the 4 formats at 8, 10 and 12 bits with sharpness
+     0, 3 and 7, maps with every length (0, 4, 6, 8, 14) beside every
+     other and cell rows all 14 (wide filters that write each other's
+     pixels), as large as the planes' cells, smaller and larger, the
+     planes read in place through a row stride, and on 1080p 4:2:0 at 8
+     and 10 bits; and on maps whose lengths follow the transform sizes,
+     as a stream's do (each pixel written by one edge at most: 61x83 in
+     the 4 formats at 8 and 12 bits, sharpness 0 and 7, and 1080p 4:2:0
+     at 8 and 10 bits); `wiener` (every Wiener plane in one launch) against
+     `_wiener_plain` on seeded units at 1080p 4:2:0 (8, 10, 12 bits),
+     across stripe, unit-row and unit-column boundaries (the cq-40 key
+     frame's own inputs in 8b); `superres` (every plane in one launch)
+     against `_superres_plain` on 1080p 4:2:0 upscales built by
+     `_superres_args`' arithmetic at denominators 9 and 16, the final
+     and the pre-CDEF planes (6 in one launch); then each kernel's
+     device ms (torch.profiler), kernels a call, wrapper-inclusive ms,
+     the plain version's device ms and kernels and its ms, and the bound
+     (bytes and operations: `deblock_work`, `wiener_work`,
+     `superres_work`) at 1080p 4:2:0 (deblock on both kinds of maps);
 3. main path: `decode_stream_batched(device="cuda")` on the committed
    1080p 8-frame all-intra stream: every frame's MD5 against the
    committed manifest, one `cdef_frame` launch per frame with CDEF on
@@ -73,7 +95,9 @@ Phases (each raises on failure, so the script exits non-zero):
    then the scan with MF_INTER lanes; both run under torch's sync debug
    mode "error"), one `cdef_frame` launch per frame with CDEF on and no
    `cdef_filter` launch; then a warm timed pass (fps, mean key-frame and
-   inter-frame ms, host InterPlan ms) and, on one inter frame's real
+   inter-frame ms, host InterPlan ms), a pass with the postfilter stage
+   clocked (`postfilter_clocked`: host ms a frame, the device
+   synchronised around it) and, on one inter frame's real
    lanes (checked disjoint, and the kernel byte-equal to `_mc_plain`
    on them, MC_REPEATS runs), the MC pass's device time (torch.profiler:
    every device interval of one `mc_into` call on the scan's buffer, as
@@ -125,11 +149,14 @@ Phases (each raises on failure, so the script exits non-zero):
       frame's MD5 and recon path against the manifest, all on the device
       path, the compound MC lanes counted (at least 1), one `cdef_frame`
       launch per frame with CDEF on; then a warm timed pass
-      (`fps_1080p_compound`, mean key- and inter-frame ms) and the MC
-      pass of the last frame with compound lanes (checked as in 5;
-      device, kernel, wrapper and plain ms, bound), as in 5;
+      (`fps_1080p_compound`, mean key- and inter-frame ms), a pass with
+      the postfilter stage clocked, and the MC pass of the last frame
+      with compound lanes (checked as in 5; device, kernel, wrapper and
+      plain ms, bound), as in 5;
    b. the key frame of the cq-40 host stream on the device path, its
-      Wiener restoration on the device, against the manifest;
+      Wiener restoration on the device in one `wiener` launch, against
+      the manifest; then the kernel on that frame's own inputs,
+      byte-equal to `_wiener_plain`, and its times;
    c. `decode_stream_batched` on `screen`'s TU 0, an intra block copy
       key frame, inline on the host pixel path, against the manifest;
    d. `parallel.sharded_cdef.cdef_local` on phase 3's frame 0 in 2 and 4
@@ -151,17 +178,26 @@ each GOP worker frame's `Decoder.stats` `scan_launches` and
 `scan_levels`, in 7d each rank's, against the levels of the frame it
 scanned): every scan ran on the kernel, to its last level; and the MC
 kernel's launches equal to the MC passes with lanes, the residual
-kernel's to the host frames with device buckets, with no plain MC pass
-or plain residual call on the card.
+kernel's to the host frames with device buckets, the deblock kernel's to
+two a device-path frame with a loop-filter level (in 7b and 7d through
+the workers' `deblock_launches`), the superres kernel's to the
+device-path frames with superres and the Wiener kernel's to those whose
+Wiener LR ran on the device, with no plain MC pass, residual, deblock,
+superres or Wiener call on the card.
 The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
 8a-c and 8e for `cdef_frame` (36), and phase 7's checked calls (counted
 in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
 (2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` the
 launches of every checked scan of phases 3-8 in this process (3, 4, 5
 and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch),
-and for `mc` and `itx` their launches in every checked decode of phases
-3-8 (their times: `mc` on the inter stream's frame 7, phase 5, `itx` on
-the host stream's last host frame, phase 6).
+and for `mc`, `itx`, `deblock`, `superres` and `wiener` their launches
+in every checked decode of phases 3-8 in this process (their times:
+`mc` on the inter stream's frame 7, phase 5, `itx` on the host stream's
+last host frame, phase 6, `deblock` on phase 2's seeded 1080p 4:2:0
+frame with transform-size maps (no frame of the committed 1080p streams has a loop-filter level:
+libaom chose level 0; the small streams' frames deblock), `superres` on
+phase 2's 1080p upscale at denominator 9,
+`wiener` on the cq-40 key frame, phase 8b).
 `cdef_frame`'s times there are phase 2's (1080p 4:2:0, random all-tap
 strengths); `cdef_filter`'s are those of its `Decoder`-path launch,
 shard 0 of 2 in 8d (luma pad 1084x964, chroma pads 544x484), and its
@@ -269,6 +305,11 @@ def int32_ops_per_s():
     return sms * INT32_PER_CLOCK_PER_SM * mhz * 1e6
 
 
+# cycles of the spin kernel `queued_ms` queues its calls behind (about
+# 0.1 s at the H100's 1.98 GHz)
+QUEUE_SPIN = 200_000_000
+
+
 def cuda_ms(fn, iters):
     """Mean milliseconds of fn() on the card (CUDA events around a warm
     loop of calls: host cost of the calls included)."""
@@ -316,10 +357,40 @@ def traced(fn, name, iters):
     return ms(ev), len(kernels) / iters, ms(e for e in ev if name in e.name)
 
 
+def queued_ms(fn, iters):
+    """Mean device milliseconds of fn() a call from CUDA events around
+    `iters` calls that the host queued behind a spin kernel (QUEUE_SPIN
+    cycles, far longer than the host takes to queue them), so the card
+    runs them back to back: no host cost, the gaps between kernels (a
+    few microseconds) counted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def kernel_ms(fn, name, iters):
     """Mean device milliseconds, per fn() call, of the kernels whose name
-    holds `name` (no host cost counted); fn() launches one such kernel."""
-    return traced(fn, name, iters)[2]
+    holds `name` (no host cost counted); fn() launches one such kernel.
+    Where every trace lost records (`profiling.RecordsLost`: the
+    profiler starts recording late, at times for a whole series of
+    traces), the calls' `queued_ms`, logged."""
+    from av1dec_tpu_torch.profiling import RecordsLost
+    try:
+        return traced(fn, name, iters)[2]
+    except RecordsLost as e:
+        ms = queued_ms(fn, iters)
+        log(f"profiler: {e}; {name} timed from CUDA events around {iters} "
+            f"calls queued behind a spin kernel instead: {ms} ms a call")
+        return ms
 
 
 def bound_terms(int_rate, nbytes, ops, int8_ops=0):
@@ -794,11 +865,25 @@ def phase_scan(manifest, dev, int_rate):
     return out
 
 
-# each checked `Launches` block's launches of the scan, MC and residual
-# kernels, in order: their launches on the main paths
+# each checked `Launches` block's launches of the scan, MC, residual,
+# deblock, superres and Wiener kernels, in order: their launches on the
+# main paths
 MAIN_SCANS = []
 MAIN_MC = []
 MAIN_ITX = []
+MAIN_DEBLOCK = []
+MAIN_SUPERRES = []
+MAIN_WIENER = []
+# deblock kernel launches a frame: one a pass
+DEBLOCK_PER_FRAME = 2
+
+
+def on_card(x):
+    """Whether a tensor, or the first tensor of a list or tuple, is on a
+    card."""
+    while isinstance(x, (list, tuple)):
+        x = x[0]
+    return x.is_cuda
 
 
 class Launches:
@@ -807,29 +892,45 @@ class Launches:
     lanes (from the lanes each is given), keeping each launch's counter
     buffer; the MC passes that go through `device_recon.mc_into` with
     lanes; the `recon.residuals_device` calls with blocks (a host frame's
-    device buckets); and the calls of the plain MC pass and the plain
-    residuals on a card.  On leaving, holds the scan kernel's launches
-    (`wavefront.launches`, set to 0 on entry) equal to the scans with
-    lanes and the levels their counters report complete equal to those
-    levels, the MC kernel's (`mc.launches`) equal to the passes with
-    lanes, the residual kernel's (`itx.launches`) equal to the calls with
-    blocks, and no plain call on the card: every scan, MC pass and
-    residual call ran on its kernel, one launch each."""
+    device buckets); the postfilter calls on a card that go through
+    `device_recon.deblock_planes`, `superres_planes` and
+    `lr_wiener_planes` (with a Wiener plane); and the calls of the plain
+    MC pass, residuals, deblock, superres and Wiener on a card.  On
+    leaving, holds the scan kernel's launches (`wavefront.launches`, set
+    to 0 on entry) equal to the scans with lanes and the levels their
+    counters report complete equal to those levels, the MC kernel's
+    (`mc.launches`) equal to the passes with lanes, the residual
+    kernel's (`itx.launches`) equal to the calls with blocks, the
+    deblock kernel's to DEBLOCK_PER_FRAME a deblock call, the superres
+    and Wiener kernels' to their calls, and no plain call on the card:
+    every scan, MC pass, residual and postfilter call ran on its kernel."""
 
     def __init__(self, what):
         self.what = what
         self.levels = self.scans = self.with_lanes = 0
         self.passes = self.host_frames = self.plain_on_card = 0
+        self.deblocks = self.upscales = self.wieners = 0
         self.counters = []
 
     def __enter__(self):
-        from av1dec_tpu_torch.ops.kernels import itx, mc, wavefront
+        from av1dec_tpu_torch.ops.kernels import (deblock, itx, lr, mc,
+                                                  superres, wavefront)
         from av1dec_tpu_torch.pipeline import device_recon, recon
         self.real = {(device_recon, "scan_into"): device_recon.scan_into,
                      (device_recon, "mc_into"): device_recon.mc_into,
                      (recon, "residuals_device"): recon.residuals_device,
+                     (device_recon, "deblock_planes"):
+                     device_recon.deblock_planes,
+                     (device_recon, "superres_planes"):
+                     device_recon.superres_planes,
+                     (device_recon, "lr_wiener_planes"):
+                     device_recon.lr_wiener_planes,
                      (mc, "_mc_plain"): mc._mc_plain,
-                     (itx, "_residuals_plain"): itx._residuals_plain}
+                     (itx, "_residuals_plain"): itx._residuals_plain,
+                     (deblock, "_deblock_plain"): deblock._deblock_plain,
+                     (superres, "_superres_plain"):
+                     superres._superres_plain,
+                     (lr, "_wiener_plain"): lr._wiener_plain}
         real = {name: fn for (_, name), fn in self.real.items()}
 
         def scan_into(*args):
@@ -851,20 +952,37 @@ class Launches:
             self.host_frames += sum(len(b[0]) for b in args[0]) > 0
             return real["residuals_device"](*args)
 
+        def deblock_planes(*args):
+            self.deblocks += on_card(args[0])
+            return real["deblock_planes"](*args)
+
+        def superres_planes(*args):
+            self.upscales += on_card(args[0])
+            return real["superres_planes"](*args)
+
+        def lr_wiener_planes(*args):
+            self.wieners += on_card(args[0]) and \
+                any(a is not None for a in args[2])
+            return real["lr_wiener_planes"](*args)
+
         def plain(name):
             def call(*args):
-                self.plain_on_card += args[0].is_cuda
+                self.plain_on_card += on_card(args[0])
                 return real[name](*args)
             return call
         for (mod, name), fn in zip(self.real, (
-                scan_into, mc_into, residuals_device, plain("_mc_plain"),
-                plain("_residuals_plain"))):
+                scan_into, mc_into, residuals_device, deblock_planes,
+                superres_planes, lr_wiener_planes, plain("_mc_plain"),
+                plain("_residuals_plain"), plain("_deblock_plain"),
+                plain("_superres_plain"), plain("_wiener_plain"))):
             setattr(mod, name, fn)
         wavefront.launches = mc.launches = itx.launches = 0
+        deblock.launches = superres.launches = lr.launches = 0
         return self
 
     def __exit__(self, kind, *_):
-        from av1dec_tpu_torch.ops.kernels import itx, mc, wavefront
+        from av1dec_tpu_torch.ops.kernels import (deblock, itx, lr, mc,
+                                                  superres, wavefront)
         for (mod, name), fn in self.real.items():
             setattr(mod, name, fn)
         if kind is None:
@@ -884,10 +1002,24 @@ class Launches:
                     f"{self.passes} MC passes with lanes, or itx launches "
                     f"{itx.launches} != {self.host_frames} host frames "
                     f"with device buckets, or {self.plain_on_card} plain "
-                    f"MC or residual calls on the card")
+                    f"MC, residual, deblock, superres or Wiener calls on "
+                    f"the card")
+            if deblock.launches != DEBLOCK_PER_FRAME * self.deblocks or \
+                    superres.launches != self.upscales or \
+                    lr.launches != self.wieners:
+                raise AssertionError(
+                    f"{self.what}: deblock launches {deblock.launches} != "
+                    f"{DEBLOCK_PER_FRAME} x {self.deblocks} frames with a "
+                    f"loop-filter level, or superres launches "
+                    f"{superres.launches} != {self.upscales} frames with "
+                    f"superres, or wiener launches {lr.launches} != "
+                    f"{self.wieners} frames with device Wiener LR")
             MAIN_SCANS.append(wavefront.launches)
             MAIN_MC.append(mc.launches)
             MAIN_ITX.append(itx.launches)
+            MAIN_DEBLOCK.append(deblock.launches)
+            MAIN_SUPERRES.append(superres.launches)
+            MAIN_WIENER.append(lr.launches)
         return False
 
     def __str__(self):
@@ -896,7 +1028,13 @@ class Launches:
                 f"{self.levels} levels with lanes complete; mc launches "
                 f"{self.passes} = MC passes with lanes; itx launches "
                 f"{self.host_frames} = host frames with device buckets; "
-                f"no plain MC or residual call on the card")
+                f"deblock launches {DEBLOCK_PER_FRAME * self.deblocks} = "
+                f"{DEBLOCK_PER_FRAME} x {self.deblocks} device frames with "
+                f"a loop-filter level; superres launches {self.upscales} "
+                f"= device frames with superres; wiener launches "
+                f"{self.wieners} = device frames with Wiener LR; no plain "
+                f"MC, residual, deblock, superres or Wiener call on the "
+                f"card")
 
 
 def frame_levels(name, count):
@@ -916,6 +1054,23 @@ def frame_levels(name, count):
             _, lanes, _ = plan_levels({t: inp[t][1] for t in ts},
                                       {t: inp[t][2] for t in ts}, ts)
             out.append(int((lanes > 0).sum()))
+    parser.close()
+    return out
+
+
+def deblock_frames(name, count):
+    """Whether each of the first `count` coded frames of a stream has a
+    loop-filter level (host maps)."""
+    from av1dec_tpu_torch.bindings import NativeParser
+    from av1dec_tpu_torch.ops.spec.deblock import build_deblock_maps
+    parser = NativeParser()
+    out = []
+    for tu in read_tus(name)[:count]:
+        for hdr, plans in parser.parse_tu(tu, with_plans=True):
+            seq = parser.seq
+            planes = 1 if seq["mono_chrome"] else 3
+            out.append(build_deblock_maps(seq, hdr, plans, planes)
+                       is not None)
     parser.close()
     return out
 
@@ -946,7 +1101,32 @@ def check_launches(cdef, n_cdef, what):
             f"{cdef.launches} != 0")
 
 
+def postfilter_clocked(decode):
+    """decode() with host ms around each `postfilter_batch` call, the
+    device synchronised before and after it.  Returns (what decode()
+    returns, mean postfilter ms a frame)."""
+    from av1dec_tpu_torch.pipeline import device_recon
+    spent = []
+    real = device_recon.postfilter_batch
+
+    def clocked(drs, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(drs, *args)
+        torch.cuda.synchronize()
+        spent.append(((time.perf_counter() - t) * 1e3, len(drs)))
+        return out
+    device_recon.postfilter_batch = clocked
+    try:
+        out = decode()
+    finally:
+        device_recon.postfilter_batch = real
+    return out, sum(ms for ms, _ in spent) / sum(n for _, n in spent)
+
+
 def phase_main_path(manifest, dev, int_rate):
+    """3; returns the `cdef_frame` launches of the checked pass and frame
+    0's CDEF inputs."""
     from av1dec_tpu_torch.api import STAGES, decode_stream_batched
     from av1dec_tpu_torch.api import display_md5
     from av1dec_tpu_torch.container import read_ivf
@@ -1223,9 +1403,12 @@ def phase_inter(manifest, dev, int_rate):
         return real(*args)
     device_recon.mc_into = keep
     try:
-        _, stats = decode()
+        (_, stats), pf_ms = postfilter_clocked(decode)
     finally:
         device_recon.mc_into = real
+    log(json.dumps({"postfilter_1080p_inter": {
+        "stream": BIG_INTER, "postfilter_ms_per_frame": pf_ms,
+        "card": card_line()}}))
     frame, ref_flat, lanes, cfg = seen[-1]
     frame = frame.clone()
     what = f"{BIG_INTER} frame {len(stats) - 1}"
@@ -1405,6 +1588,294 @@ def residual_work(buf, spans):
         nbytes += 4 * B * w * h
         blocks += B
     return int(nbytes), int(ops), blocks
+
+
+# int32 operations of the deblocking filter, the least its decisions and
+# filters need, counted from `csrc/deblock.cu` (a clamp is 2, |a - b| 2,
+# a multiply by 2 or 3 one).  Per edge line by its length: the
+# thresholds (8 a cell, shared by its 4 lines: 2) and the mask m (four
+# differences, the x2, /2 and sum, 3 compares, 2 ands: 16) for every
+# length; m6 (8), flat6 (2 compares reusing m's differences, 2 more
+# differences, 3 ands: 11) and the choice of filter (2) from length 6;
+# m8 (8) and flat8 (8) for lengths 8 and 14; flat2 (24) for 14 alone
+DEBLOCK_DECISION_OPS = {4: 2 + 16, 6: 2 + 16 + 8 + 11 + 2,
+                        8: 2 + 16 + 8 + 11 + 2 + 8 + 8,
+                        14: 2 + 16 + 8 + 11 + 2 + 8 + 8 + 24}
+# then per edge line by the filter that runs, each as a running sum: the
+# 13-tap wide filter (the first output's 16 terms: 15 adds, 11 updates of
+# 4, 12 roundings of 2), the 7-tap (first output 6, 5 updates of 4, 6
+# roundings), the 5-tap (first 6, 3 updates of 4, 4 roundings) and the
+# 4-tap narrow filter with hev (53); a pixel no filter writes is a copy
+DEBLOCK_OPS = {"wide": 15 + 11 * 4 + 12 * 2, "8": 6 + 5 * 4 + 6 * 2,
+               "6": 6 + 3 * 4 + 4 * 2, "4": 53}
+# per Wiener output pixel of a unit that is on: 7 vertical multiply-adds,
+# the rounding add and shift and the clamp; per horizontally filtered
+# pixel of each (plane, source row, unit row) it needs: the same
+SEP_OPS_PER_PX = 7 + 2 + 2
+# per superres output pixel: 8 multiply-adds, the rounding add and shift
+# and the clip
+SUPERRES_OPS_PER_PX = 8 + 2 + 2
+# runs of each postfilter kernel on each checked input, each
+# byte-compared with its plain version
+POST_REPEATS = 5
+# phase 2: seeded deblock frames (odd sizes, every format, map shapes)
+DEBLOCK_SIZE = (61, 83)
+
+
+def deblock_work(planes, maps, sharp, bd):
+    """(bytes, int32 operations, edge lines by length and by filter) of
+    `deblock_planes` on these inputs: each plane and cell map read once,
+    each output written once; per pass the decision of each edge line
+    with a length and the filter each runs, taken from the plain
+    version's own masks (`_filter_edges`, on the pass's input)."""
+    from av1dec_tpu_torch.ops.kernels import deblock
+    seen = []
+    real = deblock._filter_edges
+
+    def keep(p, q, length, limit, blimit, thresh, bd_):
+        out = real(p, q, length, limit, blimit, thresh, bd_)
+        F = 1 << (bd_ - 8)
+        flat6 = ((p[1] - p[0]).abs() <= F) & ((q[1] - q[0]).abs() <= F) & \
+            ((p[2] - p[0]).abs() <= F) & ((q[2] - q[0]).abs() <= F)
+        near, mid, wide = out[2][0], out[2][2], out[2][3]
+        w6 = near & ~mid & (length == 6) & flat6
+        n = {f"len{L}": int(((length >= 8) & (length != 14)).sum()) if L == 8
+             else int((length == L).sum()) for L in DEBLOCK_DECISION_OPS}
+        seen.append({**n, "wide": int(wide.sum()),
+                     "8": int((mid & ~wide).sum()), "6": int(w6.sum()),
+                     "4": int((near & ~mid & ~w6).sum())})
+        return out
+    deblock._filter_edges = keep
+    try:
+        deblock._deblock_plain(planes, maps, sharp, bd)
+    finally:
+        deblock._filter_edges = real
+    kinds = {k: sum(s[k] for s in seen) for k in seen[0]}
+    ops = sum(kinds[f"len{L}"] * n for L, n in DEBLOCK_DECISION_OPS.items()) \
+        + sum(kinds[k] * DEBLOCK_OPS[k] for k in DEBLOCK_OPS)
+    nbytes = sum(8 * p.numel() for p in planes) + \
+        sum(4 * m.numel() for pm in maps for pair in pm for m in pair)
+    return nbytes, ops, kinds
+
+
+def wiener_work(planes, pre_planes, lr_args):
+    """(bytes, int32 operations) of the Wiener pass: each post-CDEF plane
+    read once, the pre-CDEF rows a tap reads, the arguments read and the
+    output written once; the separable filter's horizontal pass over each
+    distinct (plane, source row, unit row) the unit-on pixels need and
+    its vertical pass over those pixels."""
+    nbytes = ops = 0
+    for plane, pre, a in zip(planes, pre_planes, lr_args):
+        if a is None:
+            continue
+        uy, ux, tv, th, act, vr, inside = a
+        H, W = plane.shape
+        on = act.bool()[uy.long()][:, ux.long()]              # [H, W]
+        rows = on.any(1)
+        key = ((~inside).long() * H + vr.long()) * act.shape[0] + \
+            uy.long()[None, :]                                 # [7, H]
+        cols = int(on.any(0).sum())
+        nbytes += 8 * plane.numel() + \
+            4 * W * torch.unique(vr[~inside]).numel() + \
+            sum(t.numel() * t.element_size() for t in a)
+        ops += SEP_OPS_PER_PX * (int(on.sum()) + cols * torch.unique(
+            key[:, rows]).numel())
+    return nbytes, ops
+
+
+def superres_work(planes, sr_args, outs):
+    """(bytes, int32 operations) of an upscale: each source plane and
+    table read once, each output written once; per output pixel its
+    8-tap filter."""
+    px = sum(o.numel() for o in outs)
+    nbytes = sum(4 * p.numel() for p in planes) + 4 * px + \
+        sum(4 * (c.numel() + t.numel()) for c, t in sr_args)
+    return nbytes, px * SUPERRES_OPS_PER_PX
+
+
+def all_events(fn, iters, name):
+    """(ms of every device interval, kernels, ms of the kernels named
+    `name`) per fn() call, from a whole trace of `iters` calls (fn may
+    launch several kernels)."""
+    ev = _device_events(fn, iters)
+    kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+
+    def ms(evs):
+        return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
+    return ms(ev), len(kernels) / iters, ms(e for e in ev if name in e.name)
+
+
+def check_post(name, fn, plain, mod, args, what, per_call=1,
+               repeats=POST_REPEATS):
+    """`fn(*args)` on the card `repeats` times, each run byte-equal to
+    `plain(*args)` on the card and `per_call` launches of the kernel
+    (counted in `mod.launches`); returns the launches."""
+    want = plain(*args)
+    launched = 0
+    for run in range(repeats):
+        before = mod.launches
+        got = fn(*args)
+        launched += mod.launches - before
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        if err or len(got) != len(want) or \
+                launched != (run + 1) * per_call:
+            raise AssertionError(
+                f"{name} != plain at {what}, run {run + 1} of {repeats}: "
+                f"max abs err {err}, {len(got)} planes (plain {len(want)}), "
+                f"{launched} launches")
+    return launched
+
+
+def time_post(name, fn, plain, args, work, int_rate, what, iters=20):
+    """A postfilter kernel on one input: every device interval and kernel
+    of a call, its kernels' interval, its wrapper-inclusive ms, the plain
+    version's device ms and kernels and its ms (CUDA events), and the
+    bound of `work` (bytes, int32 operations); logged and returned."""
+    d_ms, n_k, k_ms = all_events(lambda: fn(*args), iters, name + "_kernel")
+    pd_ms, pn_k, _ = all_events(lambda: plain(*args), 3, name)
+    terms = bound_terms(int_rate, *work[:2])
+    out = {"what": what, "device_ms": d_ms, "kernels": n_k,
+           "kernel_ms": k_ms, "wrapper_ms": cuda_ms(lambda: fn(*args),
+                                                    iters),
+           "plain_device_ms": pd_ms, "plain_kernels": pn_k,
+           "plain_ms": cuda_ms(lambda: plain(*args), 3), **terms,
+           "share_of_bound": terms["bound_ms"] / k_ms, "card": card_line()}
+    if len(work) > 2:
+        out["edges"] = work[2]
+    log(json.dumps({name: out}))
+    out["ms"] = k_ms
+    out["max_abs_err"] = 0
+    return out
+
+
+def phase_postfilter(dev, int_rate):
+    """2 (postfilter): the deblock, superres and Wiener kernels, each
+    against its plain version on the card, byte-equal, POST_REPEATS runs
+    a check: deblock on seeded frames in the 4 formats at 8, 10 and 12
+    bits with sharpness 0, 3 and 7, odd sizes, maps with every length
+    beside every other (as large as the planes' cells, smaller and
+    larger), the planes read in place through a row stride, and on
+    1080p 4:2:0; and on maps whose lengths follow the transform sizes,
+    as a stream's do (4 formats, 8 and 12 bits, sharpness 0 and 7, and
+    1080p 4:2:0); Wiener on seeded units across stripe, unit-row and
+    unit-column boundaries at 1080p 4:2:0 (8, 10, 12 bits; the key
+    frame of BIG_HOST40 in phase 8b); superres on 1080p 4:2:0 upscales
+    at denominators 9 and 16 (`_superres_args`' arithmetic), the final
+    and the pre-CDEF planes in one launch.  Then each kernel's times at
+    1080p 4:2:0 (seeded; deblock on both kinds of maps, its entry from
+    the transform-size maps).  Returns the deblock and superres
+    entries."""
+    from torch_port_helpers import (FORMATS, seeded_deblock,
+                                    seeded_wiener_args, smooth_plane,
+                                    superres_case)
+    from av1dec_tpu_torch.ops.kernels import deblock, lr, superres
+    rng = np.random.default_rng(2025)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def deblock_case(H, W, fmt, bd, sharp, kind, rng=rng):
+        bases, planes, maps = seeded_deblock(rng, H, W, fmt, bd, kind)
+        views = [t(b)[:p.shape[0], :p.shape[1]]
+                 for b, p in zip(bases, planes)]
+        maps = tuple(tuple(tuple(t(m) for m in pair) for pair in pm)
+                     for pm in maps)
+        return tuple(views), maps, sharp, bd
+
+    dbl = (deblock.deblock_planes, deblock._deblock_plain, deblock)
+    n = launches = 0
+    kinds = ("fit", "small", "large")
+    for i, (fmt, bd, sharp) in enumerate(itertools.product(
+            FORMATS, (8, 10, 12), (0, 3, 7))):
+        args = deblock_case(*DEBLOCK_SIZE, fmt, bd, sharp, kinds[i % 3])
+        launches += check_post("deblock", *dbl, args,
+                               f"{fmt} {bd}-bit sharpness {sharp}",
+                               DEBLOCK_PER_FRAME)
+        n += 1
+    for bd in (10, 8):
+        stress = deblock_case(1080, 1920, "420", bd, 0, "fit")
+        launches += check_post("deblock", *dbl, stress,
+                               f"1080p 4:2:0 {bd}-bit", DEBLOCK_PER_FRAME)
+        n += 1
+    # maps whose lengths follow the transform sizes, as a stream's do
+    # (each pixel has at most one writer), from a generator of their own
+    rng_tx = np.random.default_rng(2026)
+    for fmt, bd, sharp in itertools.product(FORMATS, (8, 12), (0, 7)):
+        args = deblock_case(*DEBLOCK_SIZE, fmt, bd, sharp, "tx", rng_tx)
+        launches += check_post("deblock", *dbl, args,
+                               f"{fmt} {bd}-bit sharpness {sharp}, "
+                               f"transform-size maps", DEBLOCK_PER_FRAME)
+        n += 1
+    for bd in (10, 8):
+        args = deblock_case(1080, 1920, "420", bd, 0, "tx", rng_tx)
+        launches += check_post("deblock", *dbl, args,
+                               f"1080p 4:2:0 {bd}-bit, transform-size maps",
+                               DEBLOCK_PER_FRAME)
+        n += 1
+    log(f"kernel deblock: byte-equal to _deblock_plain on {n} frames "
+        f"({DEBLOCK_SIZE[0]}x{DEBLOCK_SIZE[1]} in 4 formats x 8/10/12-bit "
+        f"x sharpness 0/3/7, maps of every length beside every other as "
+        f"large as the cells, smaller and larger, planes read through a "
+        f"row stride; 1080p 4:2:0 8/10-bit; maps that follow the "
+        f"transform sizes in 4 formats x 8/12-bit x sharpness 0/7 and at "
+        f"1080p 4:2:0 8/10-bit), {POST_REPEATS} runs each; {launches} "
+        f"launches, two a call; max abs err 0")
+    time_post("deblock", *dbl[:2], stress, deblock_work(*stress), int_rate,
+              "1080p 4:2:0 8-bit, stress maps (every length beside every "
+              "other)")
+    deblock_entry = time_post("deblock", *dbl[:2], args,
+                              deblock_work(*args), int_rate,
+                              "1080p 4:2:0 8-bit, transform-size maps")
+
+    n = launches = 0
+    for bd in (8, 10, 12):
+        cdef_p, pre_p, wargs = [], [], []
+        for plane in range(3):
+            a, _, _ = seeded_wiener_args(rng, 1920, 1080, [256, 128, 128],
+                                         plane)
+            h, w = len(a[0]), len(a[1])
+            cdef_p.append(t(smooth_plane(rng, h, w, bd, 40 << (bd - 8))))
+            pre_p.append(t(smooth_plane(rng, h, w, bd, 40 << (bd - 8))))
+            wargs.append(tuple(t(x) for x in a))
+        args = (cdef_p, pre_p, wargs, bd)
+        launches += check_post("wiener", lr.lr_wiener_planes,
+                               lr._wiener_plain, lr, args,
+                               f"1080p 4:2:0 {bd}-bit seeded units")
+        n += 1
+    log(f"kernel wiener: byte-equal to _wiener_plain on {n} seeded 1080p "
+        f"4:2:0 frames (8/10/12-bit; units of 256 and 128, 20 % off, "
+        f"across stripe, unit-row and unit-column boundaries), all three "
+        f"planes in one launch, {POST_REPEATS} runs each; {launches} "
+        f"launches; max abs err 0")
+    time_post("wiener", lr.lr_wiener_planes, lr._wiener_plain, args,
+              wiener_work(*args[:3]), int_rate,
+              "1080p 4:2:0 12-bit, seeded units")
+
+    n = launches = 0
+    for denom in (9, 16):
+        for bd in (8, 10):
+            planes, sargs = superres_case(rng, 1920, 1080, denom, "420", bd)
+            pre = [t(smooth_plane(rng, *p.shape, bd, 9)) for p in planes]
+            sargs = [tuple(t(x) for x in a) for a in sargs]
+            args = ([t(p) for p in planes] + pre, sargs * 2, bd)
+            launches += check_post("superres", superres.superres_planes,
+                                   superres._superres_plain, superres, args,
+                                   f"1080p 4:2:0 {bd}-bit denominator "
+                                   f"{denom}")
+            n += 1
+    log(f"kernel superres: byte-equal to _superres_plain on {n} 1080p "
+        f"4:2:0 upscales (denominators 9 and 16, 8/10-bit; final and "
+        f"pre-CDEF planes, 6 in one launch), {POST_REPEATS} runs each; "
+        f"{launches} launches; max abs err 0")
+    planes, sargs = superres_case(rng, 1920, 1080, 9, "420", 8)
+    args = ([t(p) for p in planes], [tuple(t(x) for x in a)
+                                     for a in sargs], 8)
+    outs = superres._superres_plain(*args)
+    return deblock_entry, time_post(
+        "superres", superres.superres_planes, superres._superres_plain, args,
+        superres_work(args[0], args[1], outs), int_rate,
+        "1080p 4:2:0 8-bit, denominator 9 (1707 -> 1920)")
 
 
 def phase_host(manifest, dev, int_rate):
@@ -1588,6 +2059,15 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             raise AssertionError(f"GOP workers' (wavefront_scan launches, "
                                  f"levels complete) {scanned}, levels "
                                  f"with lanes {levels}")
+        # and its deblock on the kernel, one launch a pass
+        dbl = deblock_frames(BIG, max(GOP_TUS, 2))
+        deblocked = [[r["deblock_launches"] for r in st["frames"]]
+                     for st in stats]
+        if deblocked != [[DEBLOCK_PER_FRAME * dbl[st["gop"]]]
+                         for st in stats]:
+            raise AssertionError(f"GOP workers' deblock launches "
+                                 f"{deblocked}, frames with a loop-filter "
+                                 f"level {dbl}")
         per_worker = {}
         for st in stats:
             per_worker.setdefault(st["pid"], []).extend(
@@ -1595,7 +2075,7 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
         log(json.dumps({"gop_parallel": {
             "stream": f"{BIG} TUs 0-{GOP_TUS - 1}", "gops": len(stats),
             "workers": 2, "fps": len(got) / dt, "seconds": dt,
-            "scan_launches": scanned,
+            "scan_launches": scanned, "deblock_launches": deblocked,
             "worker_frame_ms": list(per_worker.values()),
             "card": card_line()}}))
 
@@ -1621,14 +2101,18 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                 raise AssertionError(f"rank {rec['rank']}: all_reduce "
                                      f"{rec['all_reduce']}")
             if rec["frames"] != want[:2] or rec["scan_launches"] != 1 or \
-                    rec["scan_levels"] != levels[rec["frame_index"]]:
+                    rec["scan_levels"] != levels[rec["frame_index"]] or \
+                    rec["deblock_launches"] != \
+                    DEBLOCK_PER_FRAME * dbl[rec["frame_index"]]:
                 raise AssertionError(
                     f"rank {rec['rank']}: sharded frames equal to the "
                     f"manifest {rec['frames'] == want[:2]}; frame "
                     f"{rec['frame_index']}'s wavefront_scan launches "
                     f"{rec['scan_launches']} (1 expected), levels complete "
                     f"{rec['scan_levels']}, levels with lanes "
-                    f"{levels[rec['frame_index']]}")
+                    f"{levels[rec['frame_index']]}, deblock launches "
+                    f"{rec['deblock_launches']} (loop-filter level "
+                    f"{dbl[rec['frame_index']]})")
             for n in N_SPACE:
                 c = rec["cdef"][str(n)]
                 if c["md5"] != whole or c["launches"] != 1 or \
@@ -1657,7 +2141,9 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
             f"rank per call ({launches}), each byte-equal to "
             f"_cdef_shard_core on its bordered planes; sharded frames 0-1 "
             f"at data=2 match the manifest on every rank, each rank's scan "
-            f"one wavefront_scan launch to its last level (frames "
+            f"one wavefront_scan launch to its last level, its deblock "
+            f"launches {DEBLOCK_PER_FRAME} a frame with a loop-filter level "
+            f"({[r['deblock_launches'] for r in res]}; frames "
             f"{res[0]['frames_s']:.3f} s on rank 0); launch "
             f"{t_launch:.3f} s")
         log(json.dumps({"sharded_cdef": rows, "card": card_line()}))
@@ -1755,6 +2241,10 @@ def phase_compound(manifest, dev, int_rate):
                     "inter_plan_ms": mean("inter_plan_ms", 0),
                     "compound_lanes": sum(comp),
                     "card": card_line()}))
+    _, pf_ms = postfilter_clocked(decode)
+    log(json.dumps({"postfilter_1080p_compound": {
+        "stream": BIG_COMPOUND, "postfilter_ms_per_frame": pf_ms,
+        "card": card_line()}}))
 
     # the MC pass of the last frame with compound lanes
     last = max(i for i, c in enumerate(comp) if c)
@@ -1772,23 +2262,33 @@ def phase_compound(manifest, dev, int_rate):
     return launches
 
 
-def phase_wiener(manifest, dev):
+def phase_wiener(manifest, dev, int_rate):
     """8b: the key frame of the cq-40 host stream, whose Wiener units'
     stripe-boundary rows the reference's device pass got wrong, on the
-    device path (device Wiener) against the manifest; returns the
-    `cdef_frame` launches."""
+    device path (device Wiener) against the manifest; then the Wiener
+    kernel on that frame's own inputs, byte-equal to `_wiener_plain`
+    POST_REPEATS runs, and its times.  Returns the `cdef_frame` launches
+    and the Wiener kernel's entry."""
     from av1dec_tpu_torch import api
-    from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.ops.kernels import cdef, lr
+    from av1dec_tpu_torch.pipeline import device_recon
     datas = read_tus(BIG_HOST40)[:1]
     kept = []
+    calls = []
     real = api.DeviceRecon
+    real_lr = device_recon.lr_wiener_planes
 
     class Keep(real):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             kept.append(self)
+
+    def keep_lr(*args):
+        calls.append(args)
+        return real_lr(*args)
     cdef.launches = cdef.frame_launches = 0
     api.DeviceRecon = Keep
+    device_recon.lr_wiener_planes = keep_lr
     t0 = time.perf_counter()
     try:
         with Launches("cq-40 key frame") as scans:
@@ -1797,20 +2297,28 @@ def phase_wiener(manifest, dev):
             dec.close()
     finally:
         api.DeviceRecon = real
+        device_recon.lr_wiener_planes = real_lr
     dt = time.perf_counter() - t0
     check_launches(cdef, cdef_frames(datas), "cq-40 key frame")
     st = dec.stats[0]
     if got != manifest[BIG_HOST40]["frames"][:1] or \
             st["recon_path"] != "device" or not st["lr"] or \
-            not kept[0]._lr_on_device:
+            not kept[0]._lr_on_device or scans.wieners != 1:
         raise AssertionError(f"{BIG_HOST40} TU 0: equal to the manifest "
                              f"{got == manifest[BIG_HOST40]['frames'][:1]}"
                              f", path {st['recon_path']}, LR {st['lr']}, "
-                             f"Wiener on the device {kept[0]._lr_on_device}")
+                             f"Wiener on the device {kept[0]._lr_on_device}"
+                             f", wiener launches {scans.wieners}")
     log(f"Wiener: {BIG_HOST40} key frame on the device path, LR (Wiener) "
-        f"on the device, matches the manifest; cdef_frame launches "
-        f"{cdef.frame_launches}; {scans}; {dt:.3f} s")
-    return cdef.frame_launches
+        f"on the device in one wiener launch, matches the manifest; "
+        f"cdef_frame launches {cdef.frame_launches}; {scans}; {dt:.3f} s")
+    args = calls[-1]
+    what = f"{BIG_HOST40} key frame (its planes and units)"
+    check_post("wiener", lr.lr_wiener_planes, lr._wiener_plain, lr, args,
+               what)
+    return cdef.frame_launches, time_post(
+        "wiener", lr.lr_wiener_planes, lr._wiener_plain, args,
+        wiener_work(*args[:3]), int_rate, what)
 
 
 def phase_batched_host(manifest, dev):
@@ -1999,6 +2507,8 @@ def main():
     scan = timed_phase("2 (scan)", phase_scan, manifest, dev, int_rate)
     timed_phase("2 (MC)", phase_mc, dev)
     timed_phase("2 (B7)", phase_b7, dev)
+    deblock_entry, superres_entry = timed_phase(
+        "2 (postfilter)", phase_postfilter, dev, int_rate)
     launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
                                    int_rate)
     timed_phase("4", phase_entry_point, manifest, dev)
@@ -2010,7 +2520,9 @@ def main():
     filter_launches = timed_phase("7b-e", phase_scale_out, manifest, dev,
                                   int_rate, frame0)
     launches += timed_phase("8a", phase_compound, manifest, dev, int_rate)
-    launches += timed_phase("8b", phase_wiener, manifest, dev)
+    n, wiener_entry = timed_phase("8b", phase_wiener, manifest, dev,
+                                  int_rate)
+    launches += n
     launches += timed_phase("8c", phase_batched_host, manifest, dev)
     n_frame, n_filter, path = timed_phase("8d-e", phase_space_shards,
                                           manifest, dev, int_rate, frame0)
@@ -2032,7 +2544,13 @@ def main():
     # its launches those of every checked scan of phases 3-8 in this
     # process; the MC kernel's its times on BIG_INTER's frame 7 (phase
     # 5), the residual kernel's on BIG_HOST's last host frame (phase 6),
-    # their launches those of every checked decode of phases 3-8
+    # their launches those of every checked decode of phases 3-8; the
+    # deblock kernel's its times on a seeded 1080p 4:2:0 frame with
+    # transform-size maps (phase 2:
+    # no frame of the 1080p streams has a loop-filter level), superres's
+    # on a seeded 1080p 4:2:0 upscale (phase 2), Wiener's on BIG_HOST40's
+    # key frame (phase 8b), their launches those of every checked decode
+    # of phases 3-8 in this process
     scan["ms"] = scan["device_ms"]
     log(json.dumps({"kernels": [
         line("cdef_frame", "av1dec_tpu/ops/kernels/cdef.py:342", frame,
@@ -2045,6 +2563,12 @@ def main():
              sum(MAIN_MC)),
         line("itx", "av1dec_tpu/ops/kernels/itx.py:88", itx_entry,
              sum(MAIN_ITX)),
+        line("deblock", "av1dec_tpu/ops/kernels/deblock.py:219",
+             deblock_entry, sum(MAIN_DEBLOCK)),
+        line("superres", "av1dec_tpu/pipeline/device_recon.py:84",
+             superres_entry, sum(MAIN_SUPERRES)),
+        line("wiener", "av1dec_tpu/ops/kernels/lr.py:29", wiener_entry,
+             sum(MAIN_WIENER)),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,26 @@
 """Deblock, Wiener LR and superres of av1dec_tpu_torch == av1dec_tpu's,
 exactly, on edge maps and filter arguments from the committed streams
-and on random ones (8- and 10-bit); and the device Wiener pass ==
+and on random ones (8- and 10-bit) and seeded maps that follow the
+transform sizes (8, 10, 12 bits; on these no pixel has two writers in a
+pass, on the random ones some do); and the device Wiener pass ==
 `ops/spec/lr.lr_frame` (the spec model, which libaom matches) at a
 1080p frame's restoration-unit and stripe geometry, where the JAX
 package's pass is not: rows next to a unit-row boundary read the next
 unit's rows, which must be filtered with their own output row's
-taps."""
+taps.  (CPU tensors: the plain versions.)
+
+Dispatch: `deblock_planes`, `lr_wiener_planes` and `superres_planes`
+run the plain version on CPU tensors (no launch counted), raise on any
+device but the CPU and a card, and their kernel wrappers raise on inputs
+the kernels do not take before anything is launched.  On a card (`gpu`
+marker): each kernel byte-equal to its plain version on the card, on
+seeded 1080p frames, with its launches counted."""
 import numpy as np
 import pytest
 import torch
 
 from torch_port_helpers import parse
-
-
-def _smooth_plane(rng, H, W, bd, noise=3):
-    """Gentle gradients + a little noise, so most deblock masks pass."""
-    yy, xx = np.mgrid[:H, :W]
-    base = (1 << (bd - 1)) + ((xx // 8 + yy // 8) % 3) * (6 << (bd - 8))
-    return np.clip(base + rng.integers(-noise, noise + 1, (H, W)),
-                   0, (1 << bd) - 1).astype(np.int32)
+from torch_port_helpers import smooth_plane as _smooth_plane
 
 
 def _run_both(planes, maps, sharp, bd):
@@ -74,6 +76,60 @@ def test_deblock_matches_jax_on_random_maps(bd, sharp):
     _run_both(planes, [maps_for(H, W), maps_for(H // 2, W // 2)], sharp, bd)
 
 
+@pytest.mark.parametrize("fmt,bd,sharp", [("420", 8, 0), ("444", 10, 3),
+                                           ("422", 12, 7)])
+def test_deblock_matches_jax_on_transform_size_maps(fmt, bd, sharp):
+    from torch_port_helpers import seeded_deblock
+    rng = np.random.default_rng(bd + sharp)
+    _, planes, maps = seeded_deblock(rng, 44, 76, fmt, bd, "tx")
+    _run_both([p.copy() for p in planes], maps, sharp, bd)
+
+
+def _most_writers(planes, maps, sharp, bd):
+    """The most edges whose filters write one pixel in a pass of
+    `_deblock_plain` (the writers `_pass_axis1` recombines)."""
+    from av1dec_tpu_torch.ops.kernels import deblock
+    real, most = deblock._filter_edges, []
+
+    def at(m, n):   # the writer n lattice steps to the right, at k
+        z = torch.zeros_like(m[:, :1]).expand(-1, abs(n))
+        return torch.cat([m[:, n:], z], 1) if n > 0 else \
+            torch.cat([z, m[:, :n]], 1)
+
+    def count(p, q, length, *rest):
+        out = real(p, q, length, *rest)
+        wp, wq = out[2], out[3]
+        for j in range(4):
+            other = at(wq[4 + j], -1) if j < 2 else at(wp[7 - j], 2)
+            most.append(int((wq[j].int() + at(wp[3 - j], 1).int() +
+                             other.int()).max()))
+        return out
+    deblock._filter_edges = count
+    try:
+        deblock._deblock_plain(planes, maps, sharp, bd)
+    finally:
+        deblock._filter_edges = real
+    return max(most)
+
+
+@pytest.mark.parametrize("fmt", ["420", "444", "mono"])
+def test_transform_size_maps_give_each_pixel_one_writer(fmt):
+    """The "tx" maps are as a stream's: no pixel has two writers in a
+    pass.  The stress maps have pixels with several, whose order the
+    kernel keeps."""
+    from torch_port_helpers import seeded_deblock
+    rng = np.random.default_rng(5)
+
+    def writers(kind):
+        _, planes, maps = seeded_deblock(rng, 48, 96, fmt, 8, kind)
+        maps = tuple(tuple(tuple(torch.as_tensor(m) for m in pair)
+                           for pair in pm) for pm in maps)
+        return _most_writers(tuple(torch.as_tensor(p.copy())
+                                   for p in planes), maps, 0, 8)
+    assert writers("tx") == 1
+    assert writers("fit") > 1
+
+
 @pytest.mark.parametrize("name", ["lr", "sres_lr"])
 def test_wiener_matches_jax(name, native_lib):
     import jax.numpy as jnp
@@ -106,8 +162,8 @@ def test_wiener_matches_jax(name, native_lib):
 def test_superres_matches_jax(bd, native_lib):
     import jax.numpy as jnp
     from av1dec_tpu.pipeline.device_recon import DeviceRecon, _superres_dev
-    from av1dec_tpu_torch.pipeline.device_recon import \
-        _superres_dev as t_superres
+    from av1dec_tpu_torch.ops.kernels.superres import \
+        superres_planes as t_superres
     seq, hdr, plans = parse("sres", "jax")[0]
     dr = DeviceRecon(seq, hdr, plans)
     args = dr._superres_args()
@@ -171,3 +227,172 @@ def test_wiener_matches_lr_frame_at_1080p_unit_rows(plane):
                       hdr, plans, 8)[plane]
     np.testing.assert_array_equal(got, want)
     assert (got != cdef_p).any()
+
+
+def _seeded(kind, dev, bd=8, fmt="420", H=40, W=52):
+    """(dispatcher, plain version, kernel module, args) of one kernel on
+    seeded inputs on `dev`."""
+    from av1dec_tpu_torch.ops.kernels import deblock, lr, superres
+    from torch_port_helpers import (seeded_deblock, seeded_wiener_args,
+                                    superres_case)
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    if kind == "deblock":
+        _, planes, maps = seeded_deblock(rng, H, W, fmt, bd)
+        maps = tuple(tuple(tuple(t(m) for m in pair) for pair in pm)
+                     for pm in maps)
+        return (deblock.deblock_planes, deblock._deblock_plain, deblock,
+                (tuple(t(p) for p in planes), maps, 3, bd))
+    if kind == "wiener":
+        cdef_p, pre_p, args = [], [], []
+        for plane in range(3):
+            a, _, _ = seeded_wiener_args(rng, W, H, [64, 32, 32], plane)
+            h, w = len(a[0]), len(a[1])
+            cdef_p.append(t(_smooth_plane(rng, h, w, bd, 20 << (bd - 8))))
+            pre_p.append(t(_smooth_plane(rng, h, w, bd, 20 << (bd - 8))))
+            args.append(tuple(t(x) for x in a))
+        return lr.lr_wiener_planes, lr._wiener_plain, lr, \
+            (cdef_p, pre_p, args, bd)
+    planes, args = superres_case(rng, W, H, 9, fmt, bd)
+    return (superres.superres_planes, superres._superres_plain, superres,
+            ([t(p) for p in planes], [tuple(t(x) for x in a)
+                                      for a in args], bd))
+
+
+KINDS = ["deblock", "wiener", "superres"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_cpu_tensors_run_the_plain_version(kind):
+    fn, plain, mod, args = _seeded(kind, "cpu")
+    before = mod.launches
+    got, want = fn(*args), plain(*args)
+    assert mod.launches == before and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _on_meta(a):
+    if torch.is_tensor(a):
+        return a.to("meta")
+    if isinstance(a, (list, tuple)):
+        return type(a)(_on_meta(x) for x in a)
+    return a
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_other_devices_raise(kind):
+    fn, _, mod, args = _seeded(kind, "cpu")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        fn(*_on_meta(args))
+
+
+def test_deblock_kernel_refuses_inputs_it_does_not_take():
+    from av1dec_tpu_torch.ops.kernels import deblock
+    _, _, _, (planes, maps, sharp, bd) = _seeded("deblock", "cpu")
+    wide = torch.zeros(planes[0].shape[0], 2 * planes[0].shape[1],
+                       dtype=torch.int32)
+    for args, match in (
+            ((planes, maps, sharp, 9), "bits"),
+            ((planes, maps, 8, bd), "sharpness"),
+            ((planes * 2, maps * 2, sharp, bd), "planes"),
+            ((planes, maps[:2], sharp, bd), "maps"),
+            ((tuple(p.to(torch.int16) for p in planes), maps, sharp, bd),
+             "int32"),
+            (((wide[:, ::2],) + planes[1:], maps, sharp, bd), "rows"),
+            ((planes, ((maps[0][0], (maps[0][1][0].T, maps[0][1][1])),)
+              + maps[1:], sharp, bd), "contiguous")):
+        before = deblock.launches
+        with pytest.raises(ValueError, match=match):
+            deblock._deblock_kernel(*args)
+        assert deblock.launches == before
+
+
+def test_wiener_kernel_refuses_inputs_it_does_not_take():
+    from av1dec_tpu_torch.ops.kernels import lr
+    _, _, _, (cdef_p, pre_p, args, bd) = _seeded("wiener", "cpu")
+    bad_act = (args[0][:4] + (args[0][4].bool(),) + args[0][5:],) + \
+        tuple(args[1:])
+    short_vr = (args[0][:5] + (args[0][5][:, 1:].contiguous(),) +
+                args[0][6:],) + tuple(args[1:])
+    for a, match in (
+            ((cdef_p, pre_p, args, 9), "bits"),
+            (([p.to(torch.int16) for p in cdef_p], pre_p, args, bd),
+             "int32"),
+            ((cdef_p, pre_p[:1] + [pre_p[1][1:]] + pre_p[2:], args, bd),
+             "pre-CDEF"),
+            ((cdef_p, pre_p, bad_act, bd), "act"),
+            ((cdef_p, pre_p, short_vr, bd), "vr")):
+        before = lr.launches
+        with pytest.raises(ValueError, match=match):
+            lr._wiener_kernel(*a)
+        assert lr.launches == before
+    # no plane with arguments: nothing to launch
+    assert lr._wiener_kernel(cdef_p, pre_p, [None] * 3, bd) == cdef_p
+
+
+def test_superres_kernel_refuses_inputs_it_does_not_take():
+    from av1dec_tpu_torch.ops.kernels import superres
+    _, _, _, (planes, args, bd) = _seeded("superres", "cpu")
+    for a, match in (
+            ((planes, args, 7), "bits"),
+            ((planes * 3, args * 3, bd), "planes"),
+            (([p.to(torch.uint8) for p in planes], args, bd), "int32"),
+            ((planes, [(c, t[:, :4].contiguous()) for c, t in args], bd),
+             "cols and taps"),
+            ((planes, [(c.long(), t) for c, t in args], bd),
+             "cols and taps")):
+        before = superres.launches
+        with pytest.raises(ValueError, match=match):
+            superres._superres_kernel(*a)
+        assert superres.launches == before
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(run with `pytest -m gpu` on the card)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_cuda_kernel_matches_plain_at_1080p(kind, bd):
+    _need_card()
+    fn, plain, mod, args = _seeded(kind, "cuda", bd, "420", 1080, 1920)
+    want = plain(*args)
+    for _ in range(3):
+        before = mod.launches
+        got = fn(*args)
+        assert mod.launches == before + (2 if kind == "deblock" else 1)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_cuda_deblock_matches_plain_on_transform_size_maps(bd):
+    _need_card()
+    from av1dec_tpu_torch.ops.kernels import deblock
+    from torch_port_helpers import seeded_deblock
+    rng = np.random.default_rng(bd)
+    _, planes, maps = seeded_deblock(rng, 1080, 1920, "420", bd, "tx")
+    args = (tuple(torch.as_tensor(p.copy(), device="cuda") for p in planes),
+            tuple(tuple(tuple(torch.as_tensor(m, device="cuda")
+                              for m in pair) for pair in pm) for pm in maps),
+            0, bd)
+    for g, w in zip(deblock.deblock_planes(*args),
+                    deblock._deblock_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["422", "444", "mono"])
+def test_cuda_deblock_matches_plain_in_every_format(fmt):
+    _need_card()
+    for bd in (8, 10, 12):
+        fn, plain, _, args = _seeded("deblock", "cuda", bd, fmt, 61, 83)
+        for g, w in zip(fn(*args), plain(*args)):
+            assert torch.equal(g, w)

@@ -62,8 +62,7 @@ PARTIAL = [
      {"_PROJ_FLAT", "_DIV", "_UV_DIR_422", "_directions", "_ilog2",
       "_constrain", "_filter_plane", "_cdef_core", "cdef_frame"}),
     ("pipeline/device_recon.py", "pipeline/device_recon.py",
-     {"_superres_dev", "_postfilter_chain", "DeviceRecon", "prep_batch",
-      "dispatch_batch"}),
+     {"_postfilter_chain", "DeviceRecon", "prep_batch", "dispatch_batch"}),
     ("ops/kernels/mc.py", "ops/kernels/mc.py",
      {"_mc_list", "_mc_bucket", "run_mc"}),
     ("pipeline/device_inter.py", "pipeline/device_inter.py", {"InterPlan"}),
@@ -87,9 +86,12 @@ DROPPED = {
     # `csrc/cdef_frame.cu` take their place
     "ops/kernels/cdef.py": {"_TH", "_cdef_all", "_cdef_tile_kernel",
                             "_filter_plane_pallas"},
-    # XLA's padded shape buckets: the port runs exact shapes
+    # XLA's padded shape buckets: the port runs exact shapes; superres is
+    # `ops/kernels/superres.py` (a kernel and its plain version), whose
+    # output tests/test_torch_deblock_lr.py holds to `_superres_dev`'s
     "pipeline/device_recon.py": {"_CAPS", "_cap", "_caps_for", "_pad_rows",
-                                 "_pow2", "run_device_batch"},
+                                 "_pow2", "run_device_batch",
+                                 "_superres_dev"},
     "pipeline/device_inter.py": {"_MC_CAPS"},
     # the AV1DEC_DEVICE switch: the port passes the device explicitly;
     # `_alpha` is imported from `pipeline/wavefront.py`

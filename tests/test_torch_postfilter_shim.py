@@ -1,0 +1,306 @@
+"""The postfilter kernels `csrc/deblock.cu` (one launch a pass),
+`csrc/wiener.cu` and `csrc/superres.cu` (one launch a frame), compiled
+with g++ against the CPU shim `tests/cuda_cpu_shim.h` and run on the
+host: the exact sources, their blocks one after another and their
+threads as fibers of one OS thread.
+
+- Deblock: both passes, byte-equal to `_deblock_plain`, on seeded frames
+  in the 4 formats at 8, 10 and 12 bits with sharpness 0 and 5, odd
+  widths and heights, maps with every length (0, 4, 6, 8, 14) beside
+  every other, as large as the plane's cells, smaller and larger, and
+  maps whose lengths follow the transform sizes, as a stream's do; the
+  planes are read in place from wider buffers through their row stride.
+  And on the maps of every frame with deblocking of the `odd`,
+  `tiles`, `mono`, `grain10` (10 bits), `qm_444` (4:4:4) and `sres_lr`
+  streams.
+- Wiener: byte-equal to `_wiener_plain` on seeded units at a 1080p
+  frame's unit-row and stripe geometry, cut to the rows and columns
+  around a unit-row, unit-column and stripe boundary (8, 10, 12 bits),
+  and on the arguments of the `lr` and `sres_lr` streams, every plane in
+  one launch.
+- Superres: byte-equal to `_superres_plain` on seeded planes upscaled at
+  denominators 9 and 16 (`_superres_args`' arithmetic) in 4:2:0, 4:4:4
+  and mono, the final and pre-CDEF planes in one launch, and on the
+  tables of the `sres` and `sres_lr` streams.
+- The sources' constants (parameters, planes a launch) and C entries are
+  the Python side's.
+
+Skips when g++ is missing (decided inside the tests).
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from av1dec_tpu_torch.ops.kernels import deblock, lr, superres
+from torch_port_helpers import (_ROOT, FORMATS, cut_wiener_args, parse,
+                                seeded_deblock, seeded_wiener_args,
+                                shim_build, shim_run, smooth_plane,
+                                superres_case)
+
+ENTRIES = {"deblock": "deblock_pass", "wiener": "wiener_frame",
+           "superres": "superres_frame"}
+
+
+@pytest.fixture(scope="module")
+def shims(tmp_path_factory):
+    out = {}
+    for src, entry in ENTRIES.items():
+        exe = shim_build(tmp_path_factory.mktemp(src), src, entry)
+        if exe is None:
+            pytest.skip("needs g++ to build the CPU shim")
+        out[src] = exe
+    return out
+
+
+def _run(exe, d, params, count, outs):
+    """The shim's launch on a parameter list whose tensors may be views
+    at the start of a wider buffer (passed as that buffer); returns the
+    output tensors `outs`, read back, as arrays."""
+    args, read = [], {}
+    for k, v in enumerate(params):
+        if torch.is_tensor(v):
+            for j, o in enumerate(outs):
+                if v is o:
+                    read[k] = j
+            if v._base is not None:
+                assert v.data_ptr() == v._base.data_ptr()
+                v = v._base
+        args.append(v)
+    rc, got, err = shim_run(exe, d, args, count, set(read))
+    assert rc == 0, err
+    res = [None] * len(outs)
+    for k, j in read.items():
+        res[j] = np.frombuffer(got[k], np.int32).reshape(outs[j].shape)
+    return res
+
+
+def _shim_deblock(exe, d, planes, maps, sharp, bd):
+    """Both passes through the shim: the vertical edges of `planes`
+    (tensors, read through their row stride) into new planes, then the
+    horizontal edges of those."""
+    cur = list(planes)
+    for axis in (0, 1):
+        dst = [torch.zeros(p.shape, dtype=torch.int32) for p in cur]
+        params = deblock._params(axis, sharp, bd, cur, dst,
+                                 [m[axis] for m in maps])
+        cur = [torch.as_tensor(a.copy())
+               for a in _run(exe, d, params, len(cur), dst)]
+    return cur
+
+
+def _check_deblock(exe, d, planes, maps, sharp, bd):
+    """The shim's deblock byte-equal to `_deblock_plain`; returns the
+    pixels the filters changed."""
+    tmaps = tuple(tuple(tuple(torch.as_tensor(np.asarray(m, np.int32))
+                              for m in pair) for pair in pm) for pm in maps)
+    want = deblock._deblock_plain(tuple(planes), tmaps, sharp, bd)
+    got = _shim_deblock(exe, d, planes, tmaps, sharp, bd)
+    changed = 0
+    for g, w, p in zip(got, want, planes):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+        changed += int((g != p).sum())
+    return changed
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_shim_deblock_matches_plain_on_seeded_frames(fmt, bd, shims,
+                                                     tmp_path):
+    rng = np.random.default_rng(16 * list(FORMATS).index(fmt) + bd)
+    kind = ("fit", "small", "large")[bd // 2 - 4]
+    for sharp in (0, 5):
+        bases, planes, maps = seeded_deblock(rng, 22, 38, fmt, bd, kind)
+        views = [torch.as_tensor(b)[:p.shape[0], :p.shape[1]]
+                 for b, p in zip(bases, planes)]
+        assert views[0].stride(0) > views[0].shape[1]
+        assert _check_deblock(shims["deblock"], tmp_path, views, maps,
+                              sharp, bd) > 0
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+def test_shim_deblock_matches_plain_on_transform_size_maps(fmt, shims,
+                                                           tmp_path):
+    rng = np.random.default_rng(70 + list(FORMATS).index(fmt))
+    for bd, sharp in ((8, 0), (12, 7)):
+        bases, planes, maps = seeded_deblock(rng, 37, 70, fmt, bd, "tx")
+        views = [torch.as_tensor(b)[:p.shape[0], :p.shape[1]]
+                 for b, p in zip(bases, planes)]
+        assert _check_deblock(shims["deblock"], tmp_path, views, maps,
+                              sharp, bd) > 0
+
+
+@pytest.mark.parametrize("sharp", [0, 3, 7])
+def test_shim_deblock_matches_plain_at_odd_sizes(sharp, shims, tmp_path):
+    rng = np.random.default_rng(30 + sharp)
+    changed = 0
+    for H, W in ((13, 21), (5, 7), (34, 9)):
+        _, planes, maps = seeded_deblock(rng, H, W, "420", 8)
+        changed += _check_deblock(
+            shims["deblock"], tmp_path,
+            [torch.as_tensor(p.copy()) for p in planes], maps, sharp, 8)
+    assert changed > 0
+
+
+@pytest.mark.parametrize("name", ["odd", "tiles", "mono", "grain10",
+                                  "qm_444", "sres_lr"])
+def test_shim_deblock_matches_plain_on_stream_maps(name, shims, tmp_path,
+                                                   native_lib):
+    from av1dec_tpu_torch.ops.spec.deblock import build_deblock_maps
+    from av1dec_tpu_torch.pipeline.wavefront import Schedule
+    rng = np.random.default_rng(3)
+    n = 0
+    for seq, hdr, plans in parse(name, "torch"):
+        sch = Schedule(seq, hdr, plans)
+        maps = build_deblock_maps(seq, hdr, plans, sch.num_planes)
+        if maps is None:
+            continue
+        planes = [torch.as_tensor(smooth_plane(rng, h, w, sch.bd, 6))
+                  for h, w in sch.valid_dims]
+        _check_deblock(shims["deblock"], tmp_path, planes, maps,
+                       int(hdr["lf"]["sharpness"]), sch.bd)
+        n += 1
+    assert n >= 1
+
+
+def _check_wiener(exe, d, cdef_p, pre_p, args, bd):
+    """The shim's Wiener pass over the planes with arguments, one launch,
+    byte-equal to `_wiener_plain`; returns the pixels it changed."""
+    targs = [None if a is None else tuple(torch.as_tensor(x) for x in a)
+             for a in args]
+    want = lr._wiener_plain(cdef_p, pre_p, targs, bd)
+    todo = [p for p, a in enumerate(targs) if a is not None]
+    outs = [torch.zeros(cdef_p[p].shape, dtype=torch.int32) for p in todo]
+    got = _run(exe, d, lr._params(bd, [(cdef_p[p], pre_p[p], o, targs[p])
+                                       for p, o in zip(todo, outs)]),
+               len(todo), outs)
+    changed = 0
+    for p, g in zip(todo, got):
+        np.testing.assert_array_equal(g, want[p].numpy())
+        changed += int((g != cdef_p[p].numpy()).sum())
+    return changed
+
+
+# (rows, columns) around a unit-row boundary that is also a stripe
+# boundary (luma row 248 = 256 - 8; chroma row 124 = 128 - 4), and a
+# unit-column boundary (luma 256, chroma 128)
+CUTS = {0: (slice(232, 262), slice(236, 276)),
+        1: (slice(110, 140), slice(112, 146))}
+
+
+@pytest.mark.parametrize("plane", [0, 1, 2])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_shim_wiener_matches_plain_at_1080p_unit_rows(plane, bd, shims,
+                                                      tmp_path):
+    rng = np.random.default_rng(40 + plane + bd)
+    args, _, _ = seeded_wiener_args(rng, 1920, 1080, [256, 128, 128], plane)
+    rows, cols = CUTS[min(plane, 1)]
+    cut = cut_wiener_args(args, rows, cols)
+    assert len(set(cut[0])) == 2 and len(set(cut[1])) == 2
+    h, w = rows.stop - rows.start, cols.stop - cols.start
+    bases = [np.zeros((h, w + 3), np.int32) for _ in range(2)]
+    for b in bases:
+        b[:, :w] = smooth_plane(rng, h, w, bd, 40 << (bd - 8))
+    cdef_p, pre_p = (torch.as_tensor(b)[:, :w] for b in bases)
+    assert _check_wiener(shims["wiener"], tmp_path, [cdef_p], [pre_p],
+                         [cut], bd) > 0
+
+
+@pytest.mark.parametrize("name", ["lr", "sres_lr"])
+def test_shim_wiener_matches_plain_on_stream_args(name, shims, tmp_path,
+                                                  native_lib):
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    rng = np.random.default_rng(4)
+    n = 0
+    for seq, hdr, plans in parse(name, "torch"):
+        args = DeviceRecon(seq, hdr, plans)._lr_wiener_args()
+        if args is None:
+            continue
+        bd = seq["bit_depth"]
+        shapes = [(a[0].shape[0], a[1].shape[0]) if a is not None else
+                  (8, 8) for a in args]
+        cdef_p = [torch.as_tensor(smooth_plane(rng, h, w, bd, 20))
+                  for h, w in shapes]
+        pre_p = [torch.as_tensor(smooth_plane(rng, h, w, bd, 20))
+                 for h, w in shapes]
+        assert _check_wiener(shims["wiener"], tmp_path, cdef_p, pre_p, args,
+                             bd) > 0
+        n += 1
+    assert n >= 1
+
+
+def _check_superres(exe, d, planes, args, bd):
+    """The shim's upscale of `planes` (tensors) with their tables, one
+    launch, byte-equal to `_superres_plain`."""
+    targs = [tuple(torch.as_tensor(x) for x in a) for a in args]
+    want = superres._superres_plain(planes, targs, bd)
+    outs = [torch.zeros(w.shape, dtype=torch.int32) for w in want]
+    got = _run(exe, d, superres._params(bd, planes, targs, outs),
+               len(planes), outs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("fmt", ["420", "444", "mono"])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_shim_superres_matches_plain_on_seeded_planes(fmt, bd, shims,
+                                                      tmp_path):
+    rng = np.random.default_rng(bd * 7 + len(fmt))
+    for denom in (9, 16):
+        planes, args = superres_case(rng, 138, 9, denom, fmt, bd)
+        # the final planes, then the pre-CDEF planes (views of wider
+        # buffers), in one launch
+        pre = []
+        for p in planes:
+            b = np.zeros((p.shape[0], p.shape[1] + 5), np.int32)
+            b[:, :p.shape[1]] = rng.integers(0, 1 << bd, p.shape)
+            pre.append(torch.as_tensor(b)[:, :p.shape[1]])
+        _check_superres(shims["superres"], tmp_path,
+                        [torch.as_tensor(p) for p in planes] + pre,
+                        list(args) * 2, bd)
+
+
+@pytest.mark.parametrize("name", ["sres", "sres_lr"])
+def test_shim_superres_matches_plain_on_stream_tables(name, shims, tmp_path,
+                                                      native_lib):
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    rng = np.random.default_rng(5)
+    n = 0
+    for seq, hdr, plans in parse(name, "torch"):
+        if not hdr.get("use_superres"):
+            continue
+        dr = DeviceRecon(seq, hdr, plans)
+        bd = seq["bit_depth"]
+        planes = [torch.as_tensor(rng.integers(0, 1 << bd, (h, w))
+                                  .astype(np.int32))
+                  for h, w in dr.sch.valid_dims]
+        _check_superres(shims["superres"], tmp_path, planes,
+                        dr._superres_args(), bd)
+        n += 1
+    assert n >= 1
+
+
+def _enum(src):
+    body = re.search(r"enum Param : int \{(.*?)\};", src, re.S).group(1)
+    return {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", body)}
+
+
+@pytest.mark.parametrize("name,mod", [("deblock", deblock), ("wiener", lr),
+                                      ("superres", superres)])
+def test_postfilter_constants_locked(name, mod):
+    from av1dec_tpu_torch.ops.kernels import cuda_build
+    with open(f"{_ROOT}/av1dec_tpu_torch/csrc/{name}.cu") as f:
+        src = f.read()
+    params = _enum(src)
+    assert params.pop("kParams") == len(mod._PARAMS)
+    # the per-plane parameters are arrays, named by their first entry
+    assert params == {"P_" + n.upper(): i for i, n in enumerate(mod._PARAMS)
+                      if not re.search(r"[1-9]$", n)}
+    assert int(re.search(r"kMaxPlanes = (\d+);", src).group(1)) == \
+        mod.MAX_PLANES
+    fns, argtypes = cuda_build.KERNELS[name]
+    assert fns == (ENTRIES[name],)
+    sig = re.search(r'extern "C" int %s\((.*?)\)' % ENTRIES[name], src,
+                    re.S).group(1)
+    assert len(sig.split(",")) == len(argtypes) == 3

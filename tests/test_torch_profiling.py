@@ -1,8 +1,9 @@
 """The trace helpers of `av1dec_tpu_torch.profiling` on made-up traces:
 what lies between the markers is kept, a trace that lost records is
 taken again, and where no trace of a named kernel is whole, the last
-such kernels a trace kept are taken (the profiler itself needs the
-card)."""
+such kernels a trace kept are taken; where none kept them,
+`chip_smoke.kernel_ms` times the calls queued behind a spin kernel (the
+profiler itself needs the card)."""
 from types import SimpleNamespace
 
 import pytest
@@ -93,7 +94,7 @@ def test_complete_events_gives_up(monkeypatch, name):
     traces = [_trace(5, marks=(False, True))[12:] if name else _trace(i)
               for i in range(profiling.ATTEMPTS)]
     calls = _replay(monkeypatch, traces)
-    with pytest.raises(RuntimeError, match="lost records"):
+    with pytest.raises(profiling.RecordsLost, match="lost records"):
         profiling.complete_events(None, 5, name)
     assert len(calls) == profiling.ATTEMPTS
     assert max(calls) == 32 * profiling.SETTLE_S
@@ -125,3 +126,27 @@ def test_tail_events_without_the_last_marker():
     assert sorted(e.time_range.start for e in got) == [110, 120, 130, 140,
                                                        150]
     assert profiling.tail_events(ev, KERNEL, 16) is None
+
+
+def test_kernel_ms_times_queued_calls_when_every_trace_lost_records(
+        monkeypatch, capsys):
+    """`chip_smoke.kernel_ms` (one kernel a call): where every trace lost
+    records, the calls queued behind a spin kernel are timed instead, and
+    the log says so; other errors pass through."""
+    from torch_port_helpers import _ROOT
+    monkeypatch.syspath_prepend(_ROOT)
+    import chip_smoke as cs
+
+    def lost(*_):
+        raise profiling.RecordsLost("the profiler lost records")
+    monkeypatch.setattr(cs, "traced", lost)
+    monkeypatch.setattr(cs, "queued_ms", lambda fn, iters: 0.25 + iters)
+    assert cs.kernel_ms(None, KERNEL, 50) == 50.25
+    out = capsys.readouterr().out
+    assert "lost records" in out and "queued behind a spin kernel" in out
+
+    def broken(*_):
+        raise RuntimeError("CUDA error")
+    monkeypatch.setattr(cs, "traced", broken)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cs.kernel_ms(None, KERNEL, 50)

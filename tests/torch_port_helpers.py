@@ -241,3 +241,150 @@ def shim_run(exe, d, params, count, shared, entry="run", resident=0):
     if r.returncode != 0:
         return r.returncode, None, r.stderr
     return 0, {k: (d / f"p{k}.out").read_bytes() for k in shared}, r.stderr
+
+
+# (subx, suby) of each chroma format; None is mono
+FORMATS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "mono": None}
+DEBLOCK_LENGTHS = (0, 4, 6, 8, 14)
+
+
+def plane_dims(H, W, fmt):
+    """[(h, w)] of a frame's planes: luma H x W and its chroma in `fmt`."""
+    sub = FORMATS[fmt]
+    if sub is None:
+        return [(H, W)]
+    sx, sy = sub
+    return [(H, W)] + [((H + sy) >> sy, (W + sx) >> sx)] * 2
+
+
+def smooth_plane(rng, H, W, bd, noise=3):
+    """Gentle gradients + a little noise, so most deblock masks pass."""
+    yy, xx = np.mgrid[:H, :W]
+    base = (1 << (bd - 1)) + ((xx // 8 + yy // 8) % 3) * (6 << (bd - 8))
+    return np.clip(base + rng.integers(-noise, noise + 1, (H, W)),
+                   0, (1 << bd) - 1).astype(np.int32)
+
+
+def tx_lengths(rng, n4, k4, chroma):
+    """[n4, k4] int32 filter lengths of one direction's edges that follow
+    the spec's transform-size rule [SPEC §7.14.2-3], as a stream's maps
+    do: each line of 4x4 cells is cut into transform blocks of seeded
+    sizes 4 to 64 (chroma 32), each starting at a multiple of its size;
+    the edge between two blocks has the length of the smaller, 4 for 4,
+    8 for 8 and 14 for 16 or more (chroma: 4, then 6); edges inside a
+    block and the plane's first edge have length 0.  So no edge reads or
+    writes a pixel another edge of the pass writes."""
+    sizes = (1, 2, 4, 8, 16)[:4 if chroma else 5]   # in cells
+    length = {1: 4, 2: 6 if chroma else 8}
+    flen = np.zeros((n4, k4), np.int32)
+    for r in range(n4):
+        x, prev = 0, None
+        while x < k4:
+            s = int(rng.choice([c for c in sizes if x % c == 0]))
+            if prev is not None:
+                flen[r, x] = length.get(min(prev, s), 6 if chroma else 14)
+            x, prev = x + s, s
+    return flen
+
+
+def seeded_deblock(rng, H, W, fmt, bd, maps="fit"):
+    """A frame's planes and per-plane deblock maps, seeded.  Returns
+    (bases, planes, maps): `planes[i]` is the [h, w] top-left view of the
+    wider int32 buffer `bases[i]` (a row stride past the width, as the
+    scan's frame buffer has); each 8x8 block has its own noise, from none
+    to far past the flat and filter thresholds, so every filter and its
+    masks run.  `maps[i]` = ((flen_v, lvl_v), (flen_h, lvl_h)), int32,
+    level 0-63 anywhere.  The lengths of "tx" maps follow the transform
+    sizes of a stream (`tx_lengths`: each edge writes only its own
+    pixels); those of the other kinds are from DEBLOCK_LENGTHS anywhere,
+    and some cell rows all 14, whose wide filters write each other's
+    pixels (the order of the writers decides); "fit" and "tx" maps cover
+    the plane's 4x4 cells, "small" ones one or two cells fewer, and
+    "large" ones more, each way."""
+    bases, planes, out = [], [], []
+    for h, w in plane_dims(H, W, fmt):
+        amp = rng.choice([0, 0, 0, 1, 2, 4, 12, 40],
+                         (-(-h // 8), -(-w // 8)))
+        amp = np.kron(amp, np.ones((8, 8), np.int64))[:h, :w] << (bd - 8)
+        noise = np.round(rng.uniform(-1, 1, (h, w)) * amp).astype(np.int64)
+        base = np.zeros((h + 3, w + 5), np.int32)
+        base[:h, :w] = np.clip(smooth_plane(rng, h, w, bd, 0) + noise, 0,
+                               (1 << bd) - 1)
+        bases.append(base)
+        planes.append(base[:h, :w])
+        d = {"fit": 0, "tx": 0, "small": -int(rng.integers(1, 3)),
+             "large": int(rng.integers(1, 3))}[maps]
+
+        def cell(n4, k4):
+            n4, k4 = max(1, n4 + d), max(1, k4 + d)
+            if maps == "tx":
+                flen = tx_lengths(rng, n4, k4, len(bases) > 1)
+            else:
+                # a quarter of the cell rows all 14: wide filters side by
+                # side
+                flen = rng.choice(DEBLOCK_LENGTHS, (n4, k4)).astype(np.int32)
+                flen[rng.random(n4) < 0.25] = 14
+            return flen, rng.integers(0, 64, (n4, k4)).astype(np.int32)
+        out.append((cell(-(-h // 4), -(-w // 4)),
+                    cell(-(-w // 4), -(-h // 4))))
+    return bases, planes, out
+
+
+def seeded_wiener_args(rng, W, H, sizes, plane, on=0.8):
+    """`DeviceRecon._lr_wiener_args` of plane `plane` of a W x H 4:2:0
+    frame whose planes have restoration units of `sizes`, each unit
+    Wiener (probability `on`) or off, with seeded taps.  Returns (args,
+    the header and plans that give them) (numpy)."""
+    import types
+
+    from av1dec_tpu_torch.ops.spec import lr as L
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    sub = 1 if plane else 0
+    pw, ph = (W + sub) >> sub, (H + sub) >> sub
+    frt = [0, 0, 0]
+    frt[plane] = L.RESTORE_WIENER
+    hdr = {"lr": {"frame_restoration_type": frt,
+                  "loop_restoration_size": sizes},
+           "upscaled_width": W, "frame_width": W, "frame_height": H}
+    recs = []
+    for ur in range(L._count_units(sizes[plane], ph)):
+        for uc in range(L._count_units(sizes[plane], pw)):
+            kind = L.RESTORE_WIENER if rng.random() < on else \
+                L.RESTORE_NONE
+            taps = rng.integers(-5, 10, 6)
+            recs.append([plane, ur, uc, kind, *taps.tolist(), 0, 0, 0])
+    plans = types.SimpleNamespace(lr=np.asarray(recs, np.int64))
+    sch = types.SimpleNamespace(num_planes=3, sub_x=1, sub_y=1,
+                                valid_dims=[(H, W), (ph, pw), (ph, pw)])
+    args = DeviceRecon._lr_wiener_args(
+        types.SimpleNamespace(hdr=hdr, sch=sch, plans=plans))[plane]
+    return args, hdr, plans
+
+
+def cut_wiener_args(args, rows, cols):
+    """Wiener arguments of the rows and columns (slices) of a plane, as
+    arguments of that cut plane: source rows shifted into it and clamped
+    to it."""
+    uy, ux, tv, th, act, vr, inside = args
+    n = rows.stop - rows.start
+    return (uy[rows], ux[cols], tv, th, act,
+            np.clip(vr[:, rows] - rows.start, 0, n - 1).astype(np.int32),
+            inside[:, rows])
+
+
+def superres_case(rng, W, H, denom, fmt, bd):
+    """Planes of a frame downscaled from width W by superres denominator
+    `denom` [SPEC §7.16] in `fmt`, seeded, and the per-plane (cols, taps)
+    of `DeviceRecon._superres_args`' arithmetic (numpy)."""
+    import types
+
+    from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
+    fw = (W * 8 + denom // 2) // denom
+    sub = FORMATS[fmt] or (0, 0)
+    dims = plane_dims(H, fw, fmt)
+    sch = types.SimpleNamespace(num_planes=len(dims), sub_x=sub[0],
+                                sub_y=sub[1], valid_dims=dims)
+    args = DeviceRecon._superres_args(types.SimpleNamespace(
+        hdr={"frame_width": fw, "upscaled_width": W}, sch=sch))
+    planes = [rng.integers(0, 1 << bd, d).astype(np.int32) for d in dims]
+    return planes, args
