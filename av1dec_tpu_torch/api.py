@@ -205,7 +205,7 @@ class Decoder:
                 "scan_levels": (_wavefront.levels_completed()
                                 if _wavefront.launches > scans0 else 0),
                 # launches of the deblock kernel (a card's device path:
-                # two per frame with a loop-filter level)
+                # one per frame with a loop-filter level)
                 "deblock_launches": _deblock.launches - dbl0,
             })
             slot = _Slot(planes=planes,

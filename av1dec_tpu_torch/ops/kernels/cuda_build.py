@@ -39,7 +39,7 @@ KERNELS = {
                        [_P, _I, _P]),
     "mc": (("mc_frame",), [_P, _I, _P]),
     "itx": (("itx_residuals",), [_P, _I, _P]),
-    "deblock": (("deblock_pass",), [_P, _I, _P]),
+    "deblock": (("deblock_frame",), [_P, _I, _P]),
     "superres": (("superres_frame",), [_P, _I, _P]),
     "wiener": (("wiener_frame",), [_P, _I, _P]),
 }

@@ -6,10 +6,11 @@ independent (an edge's taps never read pixels another same-pass edge
 writes), so each pass is one data-parallel computation over an
 [H, W/4] edge lattice.
 
-`deblock_planes` filters every plane of a frame.  A plane on a card runs
-the hand-written kernel `csrc/deblock.cu`, one launch a pass for every
-plane, so two a frame (counted in `launches`); a plane on the CPU runs
-the plain version `_deblock_plain`, whole-plane torch passes:
+`deblock_planes` filters every plane of a frame.  Planes on a card run
+the hand-written kernel `csrc/deblock.cu`, both passes of every plane in
+one launch a frame (counted in `launches`), a block a tile with the
+intermediate plane in shared memory; planes on the CPU run the plain
+version `_deblock_plain`, whole-plane torch passes:
 
 - the 14 edge-crossing taps p6..q6 are 14 strided slices of the
   zero-padded plane;
@@ -27,15 +28,16 @@ import torch
 from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, param_list,
                                                      param_names)
 
-# launches of the CUDA deblock kernel in this process (two a frame: one a
-# pass)
+# launches of the CUDA deblock kernel in this process (one a frame)
 launches = 0
 MAX_PLANES = 3
 # the kernel's int64 parameter array (`csrc/deblock.cu`, enum Param): the
-# pass's ints, then per plane its input, output, size and cell maps
-_PARAMS = param_names(["axis", "sharp", "bd", "nplanes"],
+# frame's ints, then per plane its input, output, size and the cell maps
+# of its vertical (_v) and horizontal (_h) edges
+_PARAMS = param_names(["sharp", "bd", "nplanes"],
                       ("src", "src_stride", "dst", "dst_stride", "h", "w",
-                       "flen", "lvl", "n4", "k4"), MAX_PLANES)
+                       "flen_v", "lvl_v", "n4_v", "k4_v", "flen_h", "lvl_h",
+                       "n4_h", "k4_h"), MAX_PLANES)
 
 
 def _thresholds(lvl, sharpness):
@@ -217,9 +219,10 @@ def _pass_axis1(plane, flen_c, lvl_c, sharpness, bd):
 
 def deblock_planes(planes, maps, sharpness, bd):
     """Both deblock passes for all planes.  `planes`: [H, W] int32
-    tensors; `maps`: per plane ((flen_v, lvl_v), (flen_h, lvl_h)) int32
-    tensors on the planes' device; `sharpness`: int.  Planes on a card
-    run the kernel, planes on the CPU the plain version."""
+    tensors of pixels in [0, 2^bd) (the kernel keeps them as int16);
+    `maps`: per plane ((flen_v, lvl_v), (flen_h, lvl_h)) int32 tensors on
+    the planes' device; `sharpness`: int.  Planes on a card run the
+    kernel, planes on the CPU the plain version."""
     dev = planes[0].device
     if dev.type == "cpu":
         return _deblock_plain(planes, maps, sharpness, bd)
@@ -240,11 +243,11 @@ def _deblock_plain(planes, maps, sharpness, bd):
 
 
 def _deblock_kernel(planes, maps, sharpness, bd):
-    """Both passes on the card: one `deblock_pass` launch a pass for every
-    plane, on the planes' device and its current stream, each counted in
-    `launches`.  The planes are read in place through their row stride;
-    returns new contiguous int32 planes.  Raises on inputs the kernel does
-    not take or a failed launch."""
+    """Both passes on the card: one `deblock_frame` launch for every plane,
+    on the planes' device and its current stream, counted in `launches`.
+    The planes are read in place through their row stride; returns new
+    contiguous int32 planes.  Raises on inputs the kernel does not take
+    or a failed launch."""
     global launches
     dev = planes[0].device
     if not 1 <= len(planes) <= MAX_PLANES or len(maps) != len(planes) or \
@@ -265,27 +268,25 @@ def _deblock_kernel(planes, maps, sharpness, bd):
             raise ValueError(f"deblock_planes: maps must be contiguous "
                              f"int32 [n4, k4] on {dev}")
     sizes = [p.numel() for p in planes]
-    mid, out = (torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-                .split(sizes) for _ in range(2))
-    mid = [m.view(p.shape) for m, p in zip(mid, planes)]
-    out = [o.view(p.shape) for o, p in zip(out, planes)]
-    for axis, src, dst in ((0, planes, mid), (1, mid, out)):
-        launch("deblock", "deblock_pass", dev,
-               _params(axis, sharpness, bd, src, dst,
-                       [m[axis] for m in maps]), len(planes))
-        launches += 1
+    out = [o.view(p.shape) for o, p in zip(
+        torch.empty(sum(sizes), dtype=torch.int32, device=dev).split(sizes),
+        planes)]
+    launch("deblock", "deblock_frame", dev,
+           _params(sharpness, bd, planes, out, maps), len(planes))
+    launches += 1
     return tuple(out)
 
 
-def _params(axis, sharpness, bd, src, dst, maps):
-    """The kernel's parameters in `_PARAMS` order for one pass: tensors
-    where it takes a pointer, ints; a plane the frame does not have is 0
-    throughout."""
-    params = dict(axis=axis, sharp=int(sharpness), bd=bd, nplanes=len(src))
-    for i, (s, d, (flen, lvl)) in enumerate(zip(src, dst, maps)):
+def _params(sharpness, bd, src, dst, maps):
+    """The kernel's parameters in `_PARAMS` order: tensors where it takes
+    a pointer, ints; a plane the frame does not have is 0 throughout."""
+    params = dict(sharp=int(sharpness), bd=bd, nplanes=len(src))
+    for i, (s, d, pair) in enumerate(zip(src, dst, maps)):
         params.update({f"src{i}": s, f"src_stride{i}": s.stride(0),
                        f"dst{i}": d, f"dst_stride{i}": d.stride(0),
-                       f"h{i}": s.shape[0], f"w{i}": s.shape[1],
-                       f"flen{i}": flen, f"lvl{i}": lvl,
-                       f"n4{i}": flen.shape[0], f"k4{i}": flen.shape[1]})
+                       f"h{i}": s.shape[0], f"w{i}": s.shape[1]})
+        for axis, (flen, lvl) in zip("vh", pair):
+            params.update({f"flen_{axis}{i}": flen, f"lvl_{axis}{i}": lvl,
+                           f"n4_{axis}{i}": flen.shape[0],
+                           f"k4_{axis}{i}": flen.shape[1]})
     return param_list(_PARAMS, params)

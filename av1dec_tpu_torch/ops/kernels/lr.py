@@ -20,8 +20,9 @@ unit keep the host LR tail (`pipeline/device_recon.py` `finish_host`).
 
 `lr_wiener_planes` filters every Wiener plane of a frame.  Planes on a
 card run the hand-written kernel `csrc/wiener.cu`, one launch for every
-plane (counted in `launches`); planes on the CPU run the plain version
-`_wiener_plain`, `wiener_plane` a plane.
+plane (counted in `launches`), a block a tile whose distinct keys' rows
+it filters horizontally once, in shared memory; planes on the CPU run
+the plain version `_wiener_plain`, `wiener_plane` a plane.
 """
 import torch
 
@@ -96,8 +97,9 @@ def wiener_plane(cdef_p, pre_p, args, bd):
 
 def lr_wiener_planes(planes, pre_planes, lr_args, bd):
     """All planes; lr_args[p] is None for planes without restoration.
-    Planes on a card run the kernel, planes on the CPU the plain
-    version."""
+    The planes and pre-CDEF planes hold pixels in [0, 2^bd) (the kernel
+    keeps them as int16).  Planes on a card run the kernel, planes on the
+    CPU the plain version."""
     dev = planes[0].device
     if dev.type == "cpu":
         return _wiener_plain(planes, pre_planes, lr_args, bd)

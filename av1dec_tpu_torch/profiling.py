@@ -11,14 +11,20 @@ only what lies between the two markers, and takes the trace again, with
 a longer wait each time, until what it kept is whole.  Where no trace
 is whole, the calls of a named kernel are timed from what the traces
 kept of their end (`tail_events`); where no trace kept even that,
-`complete_events` raises `RecordsLost`.
+`complete_events` raises `RecordsLost`, and `launch_ms` times the
+calls' kernels from CUDA events around each launch instead.
 """
+import sys
 import time
 
 MARKER = "spin_kernel"  # the kernel that torch.cuda._sleep launches
 LEAD = 10  # calls of fn() before the first marker
 SETTLE_S = 0.05  # seconds a trace waits before its first call
 ATTEMPTS = 10  # traces `complete_events` takes before it gives up
+# cycles of the spin kernel `launch_ms` queues before each launch (about
+# 0.5 ms at the H100's 1.98 GHz, far longer than the host takes to
+# queue the launch)
+SPIN_CYCLES = 1_000_000
 
 
 class RecordsLost(RuntimeError):
@@ -95,9 +101,11 @@ def complete_events(fn, iters, name=None, agree=None):
     every rank takes its trace again, and falls back, together.  Raises
     RecordsLost when neither gives events."""
     counts = []
+    marks = []  # marker kernels each trace kept
     tail = None
     for n in range(1, ATTEMPTS + 1):
         raw = device_events(fn, iters, SETTLE_S * 2 ** min(n - 1, 5))
+        marks.append(sum(MARKER in e.name for e in raw))
         ev = between_markers(raw)
         if name is not None:
             ok = ev is not None and sum(name in e.name for e in ev) == iters
@@ -122,4 +130,47 @@ def complete_events(fn, iters, name=None, agree=None):
         f"as many events twice (counts {counts})"
     raise RecordsLost(f"the profiler lost records in each of {ATTEMPTS} "
                        f"traces of {iters} calls: no marker pair and "
-                       f"{what}")
+                       f"{what}; markers a trace {marks}")
+
+
+def launch_ms(fn, iters):
+    """(mean ms a call, launches a call) of the kernels `iters` calls of
+    fn() launch through `cuda_build.launch`, from CUDA events recorded
+    around each launch on its device's current stream; None when fn
+    launched none.  Each launch waits behind a spin kernel (SPIN_CYCLES),
+    so the stream is busy while the host queues the launch and its
+    events bracket the kernel alone, in a call that waits for its
+    result too.  The stand-in for a trace where every trace lost
+    records."""
+    import torch
+
+    from av1dec_tpu_torch.ops.kernels import cuda_build
+    real = cuda_build.launch
+    pairs = []
+
+    def timed(name, entry, device, *args):
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(SPIN_CYCLES)
+        start.record(stream)
+        real(name, entry, device, *args)
+        end.record(stream)
+        pairs.append((start, end))
+    # the kernel modules bind `launch` by name
+    mods = [m for m in list(sys.modules.values())
+            if getattr(m, "__dict__", {}).get("launch") is real]
+    for m in mods:
+        m.launch = timed
+    try:
+        for _ in range(iters):
+            fn()
+    finally:
+        for m in mods:
+            m.launch = real
+    if not pairs:
+        return None
+    torch.cuda.synchronize()
+    return (sum(a.elapsed_time(b) for a, b in pairs) / iters,
+            len(pairs) / iters)

@@ -58,7 +58,7 @@ Phases (each raises on failure, so the script exits non-zero):
      last part-filled), against the plain route and its CPU run;
    - the postfilter kernels, each against its plain version on the card,
      byte-equal, POST_REPEATS runs a check: `deblock` (both passes of
-     every plane, one launch a pass) against `_deblock_plain` on seeded
+     every plane, one launch a frame) against `_deblock_plain` on seeded
      61x83 frames in the 4 formats at 8, 10 and 12 bits with sharpness
      0, 3 and 7, maps with every length (0, 4, 6, 8, 14) beside every
      other and cell rows all 14 (wide filters that write each other's
@@ -84,6 +84,13 @@ Phases (each raises on failure, so the script exits non-zero):
    and no `cdef_filter` launch, then a timed pass with fps and per-stage
    ms; then the frame kernel's device time and bound on the stream's own
    first frame (its planes after deblock and its real strengths);
+   b. the same decode of the committed 1080p all-intra stream at cq-level
+      55 (`bench_1080p_intra_lf`), whose every frame has a loop-filter
+      level: every frame's MD5 against the manifest, every frame on the
+      device path with one `deblock` launch, a timed pass (fps, per-stage
+      ms, the `postfilter` stage among them); then `deblock` on frame
+      0's own planes and maps, byte-equal to `_deblock_plain`
+      POST_REPEATS runs, and its times against its bound;
 4. entry point: `api.Decoder(device="cuda")` on every committed small
    stream, intra and inter, against the manifest (film grain applied),
    each coded frame on the recon path the manifest records (the device
@@ -179,29 +186,34 @@ each GOP worker frame's `Decoder.stats` `scan_launches` and
 scanned): every scan ran on the kernel, to its last level; and the MC
 kernel's launches equal to the MC passes with lanes, the residual
 kernel's to the host frames with device buckets, the deblock kernel's to
-two a device-path frame with a loop-filter level (in 7b and 7d through
+one a device-path frame with a loop-filter level (in 7b and 7d through
 the workers' `deblock_launches`), the superres kernel's to the
 device-path frames with superres and the Wiener kernel's to those whose
 Wiener LR ran on the device, with no plain MC pass, residual, deblock,
 superres or Wiener call on the card.
-The `launches` of the `{"kernels": [...]}` line count phases 3, 5, 6,
-8a-c and 8e for `cdef_frame` (36), and phase 7's checked calls (counted
+The `launches` of the `{"kernels": [...]}` line count phases 3, 3b, 5, 6,
+8a-c and 8e for `cdef_frame` (44), and phase 7's checked calls (counted
 in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
 (2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` the
-launches of every checked scan of phases 3-8 in this process (3, 4, 5
+launches of every checked scan of phases 3-8 in this process (3, 3b, 4, 5
 and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch),
 and for `mc`, `itx`, `deblock`, `superres` and `wiener` their launches
 in every checked decode of phases 3-8 in this process (their times:
 `mc` on the inter stream's frame 7, phase 5, `itx` on the host stream's
-last host frame, phase 6, `deblock` on phase 2's seeded 1080p 4:2:0
-frame with transform-size maps (no frame of the committed 1080p streams has a loop-filter level:
-libaom chose level 0; the small streams' frames deblock), `superres` on
+last host frame, phase 6, `deblock` on frame 0 of
+`bench_1080p_intra_lf`, phase 3b (the other 1080p streams have no
+loop-filter level: libaom chose level 0), `superres` on
 phase 2's 1080p upscale at denominator 9,
 `wiener` on the cq-40 key frame, phase 8b).
 `cdef_frame`'s times there are phase 2's (1080p 4:2:0, random all-tap
 strengths); `cdef_filter`'s are those of its `Decoder`-path launch,
 shard 0 of 2 in 8d (luma pad 1084x964, chroma pads 544x484), and its
 max_abs_err is phase 8's (phases 2 and 7 raise on any).
+Every device time from torch.profiler falls back, where every trace of
+it lost records (the profiler at times starts recording late for a
+whole series of traces), to CUDA events (`traced`, logged): a kernel's
+around each of its launches behind a spin kernel (also in 7c's
+workers), other calls' around the calls queued behind a spin kernel.
 Prints that line, the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`.  Exits non-zero without
 a result when no CUDA device is present.
@@ -219,11 +231,12 @@ import torch
 _REPO = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
+BIG_LF = "bench_1080p_intra_lf"  # BIG at cq-level 55: every frame deblocks
 BIG_INTER = "bench_1080p_inter"
 BIG_HOST = "bench_1080p_host"
 BIG_HOST40 = "bench_1080p_host_cq40"
 BIG_COMPOUND = "bench_1080p_compound"
-BIGS = (BIG, BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND)
+BIGS = (BIG, BIG_LF, BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND)
 SCREEN = "screen"  # phase 8c: its TU 0 is an intra block copy key frame
 SHARDS = (2, 4)  # phase 8d: in-process column shards of sharded CDEF
 INTER_FRAMES = 7  # inter frames of BIG_INTER (after its key frame)
@@ -345,11 +358,29 @@ def _device_events(fn, iters, name=None):
     return ev
 
 
-def traced(fn, name, iters):
-    """(ms of every device interval, kernels, ms of the kernels named
-    `name`) per fn() call, from one trace that holds `iters` such
-    kernels (no host cost counted)."""
-    ev = _device_events(fn, iters, name)
+def traced(fn, name, iters, one_each=True):
+    """(ms of every device interval, kernels, ms of the kernels whose
+    name holds `name`) per fn() call (no host cost counted), from one
+    trace that lost no record: with `one_each` (fn launches one such
+    kernel), one that holds `iters` of them, else one that kept as many
+    events as an earlier trace (`_device_events`).  Where every trace
+    lost records (`profiling.RecordsLost`: the profiler starts recording
+    late, at times for a whole series of traces), both times are the
+    calls' `queued_ms`, but the kernels' is `profiling.launch_ms` where
+    fn launches kernels of this tree, and the kernels are not counted
+    (None), logged."""
+    from av1dec_tpu_torch import profiling
+    try:
+        ev = _device_events(fn, iters, name if one_each else None)
+    except profiling.RecordsLost as e:
+        calls = queued_ms(fn, iters)
+        launched = profiling.launch_ms(fn, iters)
+        log(f"profiler: {e}; {name} timed from CUDA events instead: "
+            f"around each launch behind a spin kernel "
+            f"{launched and launched[0]} ms a call, around {iters} calls "
+            f"queued behind a spin kernel {calls} ms a call; kernels not "
+            f"counted")
+        return calls, None, calls if launched is None else launched[0]
     kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
 
     def ms(evs):
@@ -380,17 +411,8 @@ def queued_ms(fn, iters):
 def kernel_ms(fn, name, iters):
     """Mean device milliseconds, per fn() call, of the kernels whose name
     holds `name` (no host cost counted); fn() launches one such kernel.
-    Where every trace lost records (`profiling.RecordsLost`: the
-    profiler starts recording late, at times for a whole series of
-    traces), the calls' `queued_ms`, logged."""
-    from av1dec_tpu_torch.profiling import RecordsLost
-    try:
-        return traced(fn, name, iters)[2]
-    except RecordsLost as e:
-        ms = queued_ms(fn, iters)
-        log(f"profiler: {e}; {name} timed from CUDA events around {iters} "
-            f"calls queued behind a spin kernel instead: {ms} ms a call")
-        return ms
+    Where every trace lost records, the calls' `queued_ms` (`traced`)."""
+    return traced(fn, name, iters)[2]
 
 
 def bound_terms(int_rate, nbytes, ops, int8_ops=0):
@@ -731,12 +753,11 @@ def floor_ms(inputs, iters):
     def run():
         out.append(wf._launch("wavefront_scan_floor", frame,
                               *scan_args(inputs), inputs["levels"]))
-    ev = [e for e in _device_events(run, iters, "wavefront_floor_kernel")
-          if "wavefront_floor_kernel" in e.name]
+    ms = kernel_ms(run, "wavefront_floor_kernel", iters)
     torch.cuda.synchronize()
     if wf.levels_completed(out[-1]) != scan_levels(inputs):
         raise AssertionError("wavefront_scan_floor left levels incomplete")
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    return ms
 
 
 def time_scan(inputs, int_rate, what, iters=20):
@@ -752,9 +773,10 @@ def time_scan(inputs, int_rate, what, iters=20):
     def run():
         wf.scan_into(frame, *scan_args(inputs), inputs["windows"],
                      inputs["levels"])
-    ev = [e for e in _device_events(run, iters, "wavefront_scan_kernel")
-          if "wavefront_scan_kernel" in e.name]
-    k = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / iters
+    before = wf.launches
+    run()
+    per_scan = wf.launches - before
+    k = kernel_ms(run, "wavefront_scan_kernel", iters)
     w = cuda_ms(run, iters)
     floor = floor_ms(inputs, iters)
     plain = frame.clone()
@@ -769,7 +791,7 @@ def time_scan(inputs, int_rate, what, iters=20):
     nbytes, ops, lanes, px = scan_work(inputs)
     terms = bound_terms(int_rate, nbytes, ops)
     out = {"what": what, "levels": levels, "lanes": lanes, "pixels": px,
-           "device_ms": k, "launches_per_scan": len(ev) / iters,
+           "device_ms": k, "launches_per_scan": per_scan,
            "ms_per_level": k / levels, "wrapper_ms": w, "plain_ms": p,
            **terms, "chain_ms": floor, "link_ms": floor / levels,
            "share_of_bound": terms["bound_ms"] / k,
@@ -874,8 +896,8 @@ MAIN_ITX = []
 MAIN_DEBLOCK = []
 MAIN_SUPERRES = []
 MAIN_WIENER = []
-# deblock kernel launches a frame: one a pass
-DEBLOCK_PER_FRAME = 2
+# deblock kernel launches a frame: both passes of every plane in one
+DEBLOCK_PER_FRAME = 1
 
 
 def on_card(x):
@@ -1183,6 +1205,86 @@ def phase_main_path(manifest, dev, int_rate):
     time_frame(cdef, planes, gates, bd, damping, sx, sy, int_rate,
                f"{BIG} frame 0 (real strengths)")
     return launches, seen[0]
+
+
+def phase_lf_stream(manifest, dev, int_rate):
+    """3b: `decode_stream_batched(device="cuda", batch=4)` on BIG_LF,
+    whose every frame has a loop-filter level: every frame's MD5 against
+    the manifest, every frame on the device path (no host-path frame)
+    with one deblock launch (`Launches`); a timed pass (fps, per-stage
+    ms); then the deblock kernel on frame 0's own planes and maps,
+    byte-equal to `_deblock_plain` POST_REPEATS runs, and its times.
+    Returns the `cdef_frame` launches of the checked pass and the deblock
+    kernel's entry."""
+    from av1dec_tpu_torch import api
+    from av1dec_tpu_torch.ops.kernels import cdef, deblock
+    from av1dec_tpu_torch.pipeline import device_recon
+    datas = read_tus(BIG_LF)
+    want = manifest[BIG_LF]["frames"]
+    n_cdef = cdef_frames(datas)
+    with_lf = deblock_frames(BIG_LF, len(datas))
+    if not all(with_lf):
+        raise AssertionError(f"{BIG_LF}: frames without a loop-filter "
+                             f"level: {with_lf}")
+    host = []
+    real_host = api.FrameRecon
+
+    class Host(real_host):
+        def run(self):
+            host.append(1)
+            return super().run()
+    cdef.launches = cdef.frame_launches = 0
+    api.FrameRecon = Host
+    t0 = time.perf_counter()
+    try:
+        with Launches(BIG_LF) as scans:
+            out = api.decode_stream_batched(datas, device=dev, batch=4)
+    finally:
+        api.FrameRecon = real_host
+    t_first = time.perf_counter() - t0
+    launches = cdef.frame_launches
+    check_launches(cdef, n_cdef, BIG_LF)
+    got = [api.display_md5(p, 8, 1920, 1080, (1, 1)) for p in out]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad or host or \
+            scans.deblocks != len(want):
+        raise AssertionError(f"{BIG_LF}: frames {bad} of {len(want)} differ "
+                             f"from the manifest, {len(host)} on the host "
+                             f"path, {scans.deblocks} deblocked on the card")
+    log(f"loop-filter stream: {len(got)}/{len(want)} frames of {BIG_LF} "
+        f"match the manifest, all on the device path; cdef_frame launches "
+        f"{launches} = {n_cdef} frames with CDEF on; {scans}; first pass "
+        f"{t_first:.3f} s")
+    t0 = time.perf_counter()
+    api.decode_stream_batched(datas, device=dev, batch=4)
+    dt = time.perf_counter() - t0
+    tm = {}
+    api.decode_stream_batched(datas, device=dev, batch=4, timings=tm)
+    log(json.dumps({"fps_1080p_intra_lf": len(datas) / dt, "seconds": dt,
+                    "frames": len(datas), "stage_ms_per_frame": {
+                        k: round(tm[k] * 1e3 / len(datas), 3)
+                        for k in api.STAGES}, "card": card_line()}))
+
+    # the deblock kernel on the stream's first frame, as the chain gives it
+    seen = []
+    real = device_recon.deblock_planes
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+    device_recon.deblock_planes = keep
+    try:
+        api.decode_stream_batched(datas[:1], device=dev, batch=1)
+    finally:
+        device_recon.deblock_planes = real
+    args = seen[0]
+    what = f"{BIG_LF} frame 0 (its planes and maps)"
+    dbl = (deblock.deblock_planes, deblock._deblock_plain)
+    check_post("deblock", *dbl, deblock, args, what, DEBLOCK_PER_FRAME)
+    log(f"kernel deblock: byte-equal to _deblock_plain on {what}, "
+        f"{POST_REPEATS} runs, one launch each; max abs err 0")
+    return launches, time_post("deblock", *dbl, args, deblock_work(*args),
+                               int_rate, what)
 
 
 def phase_entry_point(manifest, dev):
@@ -1693,18 +1795,6 @@ def superres_work(planes, sr_args, outs):
     return nbytes, px * SUPERRES_OPS_PER_PX
 
 
-def all_events(fn, iters, name):
-    """(ms of every device interval, kernels, ms of the kernels named
-    `name`) per fn() call, from a whole trace of `iters` calls (fn may
-    launch several kernels)."""
-    ev = _device_events(fn, iters)
-    kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
-
-    def ms(evs):
-        return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / iters
-    return ms(ev), len(kernels) / iters, ms(e for e in ev if name in e.name)
-
-
 def check_post(name, fn, plain, mod, args, what, per_call=1,
                repeats=POST_REPEATS):
     """`fn(*args)` on the card `repeats` times, each run byte-equal to
@@ -1732,8 +1822,8 @@ def time_post(name, fn, plain, args, work, int_rate, what, iters=20):
     of a call, its kernels' interval, its wrapper-inclusive ms, the plain
     version's device ms and kernels and its ms (CUDA events), and the
     bound of `work` (bytes, int32 operations); logged and returned."""
-    d_ms, n_k, k_ms = all_events(lambda: fn(*args), iters, name + "_kernel")
-    pd_ms, pn_k, _ = all_events(lambda: plain(*args), 3, name)
+    d_ms, n_k, k_ms = traced(lambda: fn(*args), name + "_kernel", iters)
+    pd_ms, pn_k, _ = traced(lambda: plain(*args), name, 3, one_each=False)
     terms = bound_terms(int_rate, *work[:2])
     out = {"what": what, "device_ms": d_ms, "kernels": n_k,
            "kernel_ms": k_ms, "wrapper_ms": cuda_ms(lambda: fn(*args),
@@ -1763,9 +1853,8 @@ def phase_postfilter(dev, int_rate):
     frame of BIG_HOST40 in phase 8b); superres on 1080p 4:2:0 upscales
     at denominators 9 and 16 (`_superres_args`' arithmetic), the final
     and the pre-CDEF planes in one launch.  Then each kernel's times at
-    1080p 4:2:0 (seeded; deblock on both kinds of maps, its entry from
-    the transform-size maps).  Returns the deblock and superres
-    entries."""
+    1080p 4:2:0 (seeded; deblock on both kinds of maps; its entry is
+    phase 3b's, on a stream's frame).  Returns the superres entry."""
     from torch_port_helpers import (FORMATS, seeded_deblock,
                                     seeded_wiener_args, smooth_plane,
                                     superres_case)
@@ -1820,13 +1909,12 @@ def phase_postfilter(dev, int_rate):
         f"row stride; 1080p 4:2:0 8/10-bit; maps that follow the "
         f"transform sizes in 4 formats x 8/12-bit x sharpness 0/7 and at "
         f"1080p 4:2:0 8/10-bit), {POST_REPEATS} runs each; {launches} "
-        f"launches, two a call; max abs err 0")
+        f"launches, one a call; max abs err 0")
     time_post("deblock", *dbl[:2], stress, deblock_work(*stress), int_rate,
               "1080p 4:2:0 8-bit, stress maps (every length beside every "
               "other)")
-    deblock_entry = time_post("deblock", *dbl[:2], args,
-                              deblock_work(*args), int_rate,
-                              "1080p 4:2:0 8-bit, transform-size maps")
+    time_post("deblock", *dbl[:2], args, deblock_work(*args), int_rate,
+              "1080p 4:2:0 8-bit, transform-size maps")
 
     n = launches = 0
     for bd in (8, 10, 12):
@@ -1872,7 +1960,7 @@ def phase_postfilter(dev, int_rate):
     args = ([t(p) for p in planes], [tuple(t(x) for x in a)
                                      for a in sargs], 8)
     outs = superres._superres_plain(*args)
-    return deblock_entry, time_post(
+    return time_post(
         "superres", superres.superres_planes, superres._superres_plain, args,
         superres_work(args[0], args[1], outs), int_rate,
         "1080p 4:2:0 8-bit, denominator 9 (1707 -> 1920)")
@@ -2130,6 +2218,7 @@ def phase_scale_out(manifest, dev, int_rate, frame0):
                              "shard_widths": c["shard_widths"],
                              "kernel_ms": c["kernel_ms"],
                              "kernels_per_call": c["kernels_per_call"],
+                             "kernel_timed_by": c["kernel_timed_by"],
                              "wrapper_ms": c["wrapper_ms"],
                              "plain_ms": c["plain_ms"],
                              "halo_ms": c["halo_ms"], **terms,
@@ -2507,10 +2596,13 @@ def main():
     scan = timed_phase("2 (scan)", phase_scan, manifest, dev, int_rate)
     timed_phase("2 (MC)", phase_mc, dev)
     timed_phase("2 (B7)", phase_b7, dev)
-    deblock_entry, superres_entry = timed_phase(
-        "2 (postfilter)", phase_postfilter, dev, int_rate)
+    superres_entry = timed_phase("2 (postfilter)", phase_postfilter, dev,
+                                 int_rate)
     launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
                                    int_rate)
+    n, deblock_entry = timed_phase("3b", phase_lf_stream, manifest, dev,
+                                   int_rate)
+    launches += n
     timed_phase("4", phase_entry_point, manifest, dev)
     n, mc_entry = timed_phase("5 (with 7a)", phase_inter, manifest, dev,
                               int_rate)
@@ -2545,9 +2637,7 @@ def main():
     # process; the MC kernel's its times on BIG_INTER's frame 7 (phase
     # 5), the residual kernel's on BIG_HOST's last host frame (phase 6),
     # their launches those of every checked decode of phases 3-8; the
-    # deblock kernel's its times on a seeded 1080p 4:2:0 frame with
-    # transform-size maps (phase 2:
-    # no frame of the 1080p streams has a loop-filter level), superres's
+    # deblock kernel's its times on BIG_LF's frame 0 (phase 3b), superres's
     # on a seeded 1080p 4:2:0 upscale (phase 2), Wiener's on BIG_HOST40's
     # key frame (phase 8b), their launches those of every checked decode
     # of phases 3-8 in this process

@@ -1,8 +1,10 @@
 // A CPU stand-in for the CUDA runtime and the device intrinsics that the
 // kernels of av1dec_tpu_torch/csrc/ use (wavefront_scan.cu, mc.cu,
-// itx.cu), so that g++ compiles the exact source and runs its kernels on
-// the host (tests/test_torch_scan_shim.py, tests/test_torch_mc_shim.py,
-// tests/test_torch_itx_shim.py).  The test puts three one-line headers,
+// itx.cu, deblock.cu, wiener.cu, superres.cu), so that g++ compiles the
+// exact source and runs its kernels on the host
+// (tests/test_torch_scan_shim.py, tests/test_torch_mc_shim.py,
+// tests/test_torch_itx_shim.py, tests/test_torch_postfilter_shim.py).
+// The test puts three one-line headers,
 // cuda_runtime.h, cuda_pipeline.h and cuda/atomic, that include this file
 // on the include path, and compiles with -std=c++20 -pthread
 // -DCUDA_CPU_SHIM_MAIN (and -DCUDA_CPU_SHIM_ENTRY=name for a kernel other
@@ -19,11 +21,13 @@
 // barrier.  The buffers the
 // blocks write (the frame and the counters) are mapped shared by the
 // runner (main, below).  __syncthreads, __syncwarp and __shfl_xor_sync
-// are barriers of the block's or the warp's threads; cp.async
-// (__pipeline_memcpy_async) is a memcpy, so __pipeline_commit and
-// __pipeline_wait_prior do nothing; a kernel's dynamic shared memory is
-// cuda_cpu_shim_dynamic_smem(); atomicAdd, cuda::atomic_ref and
-// __threadfence are the host's atomics and fences; __ldcg is a plain
+// are barriers of the block's or the warp's threads; __shfl_sync,
+// __shfl_up_sync and __ballot_sync are warp exchanges like
+// __shfl_xor_sync, __popc and __ffs the compiler's bit counts; cp.async (__pipeline_memcpy_async) is
+// a memcpy, so __pipeline_commit and __pipeline_wait_prior do nothing; a
+// kernel's dynamic shared memory is cuda_cpu_shim_dynamic_smem();
+// atomicAdd, atomicCAS, cuda::atomic_ref and __threadfence are the host's
+// atomics and fences; __ldcg is a plain
 // (relaxed atomic) load, __ldg a load; __nanosleep yields;
 // %globaltimer is the steady clock; __trap aborts the block, and the
 // launch then returns an error.  The device has one SM, on which
@@ -170,15 +174,36 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
     cuda_cpu_shim_warp_syncs->fetch_add(1, std::memory_order_relaxed);
   cuda_cpu_shim_block->warps[threadIdx.x >> 5]->arrive_and_wait();
 }
-inline int __shfl_xor_sync(unsigned, int v, int lane_mask) {
+// the value of lane from(lane) of the warp (every lane takes part)
+template <class From>
+inline int cuda_cpu_shim_shfl(int v, From from) {
   const unsigned warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   auto& b = *cuda_cpu_shim_block;
   b.shfl[warp][lane] = v;
   b.warps[warp]->arrive_and_wait();
-  const int got = b.shfl[warp][lane ^ lane_mask];
+  const int got = b.shfl[warp][from(lane)];
   b.warps[warp]->arrive_and_wait();
   return got;
 }
+inline int __shfl_xor_sync(unsigned, int v, int lane_mask) {
+  return cuda_cpu_shim_shfl(v, [=](unsigned l) { return l ^ lane_mask; });
+}
+inline int __shfl_sync(unsigned, int v, int src) {
+  return cuda_cpu_shim_shfl(v, [=](unsigned) { return src & 31; });
+}
+inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
+  return cuda_cpu_shim_shfl(
+      v, [=](unsigned l) { return l >= delta ? l - delta : l; });
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  unsigned bits = 0;
+  for (unsigned l = 0; l < 32; ++l)  // every lane reads every lane's vote
+    bits |= static_cast<unsigned>(cuda_cpu_shim_shfl(
+                pred != 0, [=](unsigned) { return l; })) << l;
+  return bits;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 template <class T>
 inline T __ldcg(const T* p) {
   return __atomic_load_n(p, __ATOMIC_RELAXED);
@@ -196,6 +221,13 @@ inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicCAS(unsigned long long* p,
+                                    unsigned long long cmp,
+                                    unsigned long long v) {
+  __atomic_compare_exchange_n(p, &cmp, v, false, __ATOMIC_SEQ_CST,
+                              __ATOMIC_SEQ_CST);
+  return cmp;
 }
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);

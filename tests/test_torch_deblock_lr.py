@@ -9,6 +9,10 @@ package's pass is not: rows next to a unit-row boundary read the next
 unit's rows, which must be filtered with their own output row's
 taps.  (CPU tensors: the plain versions.)
 
+The committed 1080p stream `bench_1080p_intra_lf` has a luma loop-filter
+level in every frame (its headers, parsed by the port; tier-1 decodes
+no 1080p stream), so the card's main path runs deblock at 1080p.
+
 Dispatch: `deblock_planes`, `lr_wiener_planes` and `superres_planes`
 run the plain version on CPU tensors (no launch counted), raise on any
 device but the CPU and a card, and their kernel wrappers raise on inputs
@@ -57,6 +61,18 @@ def test_deblock_matches_jax_on_stream_maps(name, native_lib):
     rng = np.random.default_rng(1)
     planes = [_smooth_plane(rng, h, w, sch.bd) for h, w in sch.valid_dims]
     _run_both(planes, maps, int(hdr["lf"]["sharpness"]), sch.bd)
+
+
+def test_lf_stream_has_a_luma_loop_filter_level_in_every_frame(native_lib):
+    from av1dec_tpu_torch.bindings import NativeParser
+    from torch_port_helpers import manifest, tus
+    p = NativeParser()
+    levels = [hdr["lf"]["level"] for tu in tus("bench_1080p_intra_lf")
+              for hdr in p.parse_tu(tu)]
+    p.close()
+    assert len(levels) == len(manifest()["bench_1080p_intra_lf"]["frames"])
+    assert len(levels) == 8
+    assert all(lv[0] > 0 and lv[1] > 0 for lv in levels), levels
 
 
 @pytest.mark.parametrize("bd,sharp", [(8, 0), (8, 5), (10, 2)])
@@ -366,7 +382,7 @@ def test_cuda_kernel_matches_plain_at_1080p(kind, bd):
     for _ in range(3):
         before = mod.launches
         got = fn(*args)
-        assert mod.launches == before + (2 if kind == "deblock" else 1)
+        assert mod.launches == before + 1
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g, w)
 

@@ -1,29 +1,36 @@
-"""The postfilter kernels `csrc/deblock.cu` (one launch a pass),
-`csrc/wiener.cu` and `csrc/superres.cu` (one launch a frame), compiled
-with g++ against the CPU shim `tests/cuda_cpu_shim.h` and run on the
-host: the exact sources, their blocks one after another and their
-threads as fibers of one OS thread.
+"""The postfilter kernels `csrc/deblock.cu`, `csrc/wiener.cu` and
+`csrc/superres.cu` (one launch a frame each), compiled with g++ against
+the CPU shim `tests/cuda_cpu_shim.h` and run on the host: the exact
+sources, their blocks one after another and their threads as fibers of
+one OS thread, or (the cross-tile cases) each block in a process of its
+own.
 
-- Deblock: both passes, byte-equal to `_deblock_plain`, on seeded frames
-  in the 4 formats at 8, 10 and 12 bits with sharpness 0 and 5, odd
-  widths and heights, maps with every length (0, 4, 6, 8, 14) beside
-  every other, as large as the plane's cells, smaller and larger, and
-  maps whose lengths follow the transform sizes, as a stream's do; the
-  planes are read in place from wider buffers through their row stride.
-  And on the maps of every frame with deblocking of the `odd`,
-  `tiles`, `mono`, `grain10` (10 bits), `qm_444` (4:4:4) and `sres_lr`
-  streams.
-- Wiener: byte-equal to `_wiener_plain` on seeded units at a 1080p
+- Deblock (a block a 64x64 tile, both passes in shared memory): byte-equal
+  to `_deblock_plain` on seeded frames in the 4 formats at 8, 10 and 12
+  bits with sharpness 0 and 5, odd widths and heights, maps with every
+  length (0, 4, 6, 8, 14) beside every other, as large as the plane's
+  cells, smaller and larger, and maps whose lengths follow the transform
+  sizes, as a stream's do; the planes are read in place from wider
+  buffers through their row stride.  On planes of several tiles cut by
+  the planes' edges (4:2:0 chroma of 2x2 tiles), with wide filters on
+  both sides of the tile boundaries, whose writes cross them.  And on
+  the maps of every frame with deblocking of the `odd`, `tiles`, `mono`,
+  `grain10` (10 bits), `qm_444` (4:4:4) and `sres_lr` streams.
+- Wiener (a block a 32x64 tile, its keys' filtered rows in shared
+  memory): byte-equal to `_wiener_plain` on seeded units at a 1080p
   frame's unit-row and stripe geometry, cut to the rows and columns
   around a unit-row, unit-column and stripe boundary (8, 10, 12 bits),
-  and on the arguments of the `lr` and `sres_lr` streams, every plane in
-  one launch.
+  and to cuts several tiles high and wide whose tiles straddle those
+  boundaries (more than kTileH + 6 keys a tile); on arguments whose
+  tiles have up to 7 x kTileH keys (several chunks of them); and on the
+  arguments of the `lr` and `sres_lr` streams, every plane in one launch.
 - Superres: byte-equal to `_superres_plain` on seeded planes upscaled at
   denominators 9 and 16 (`_superres_args`' arithmetic) in 4:2:0, 4:4:4
   and mono, the final and pre-CDEF planes in one launch, and on the
   tables of the `sres` and `sres_lr` streams.
-- The sources' constants (parameters, planes a launch) and C entries are
-  the Python side's.
+- The sources' constants (parameters, planes a launch, the tiles and the
+  Wiener chunk these cases are cut for) and C entries are the Python
+  side's.
 
 Skips when g++ is missing (decided inside the tests).
 """
@@ -39,7 +46,7 @@ from torch_port_helpers import (_ROOT, FORMATS, cut_wiener_args, parse,
                                 shim_build, shim_run, smooth_plane,
                                 superres_case)
 
-ENTRIES = {"deblock": "deblock_pass", "wiener": "wiener_frame",
+ENTRIES = {"deblock": "deblock_frame", "wiener": "wiener_frame",
            "superres": "superres_frame"}
 
 
@@ -54,10 +61,12 @@ def shims(tmp_path_factory):
     return out
 
 
-def _run(exe, d, params, count, outs):
+def _run(exe, d, params, count, outs, resident=0):
     """The shim's launch on a parameter list whose tensors may be views
     at the start of a wider buffer (passed as that buffer); returns the
-    output tensors `outs`, read back, as arrays."""
+    output tensors `outs`, read back, as arrays.  `resident` 0 runs the
+    blocks one after another (their threads as fibers), above 0 each
+    block in a process of its own, all at once."""
     args, read = [], {}
     for k, v in enumerate(params):
         if torch.is_tensor(v):
@@ -68,7 +77,8 @@ def _run(exe, d, params, count, outs):
                 assert v.data_ptr() == v._base.data_ptr()
                 v = v._base
         args.append(v)
-    rc, got, err = shim_run(exe, d, args, count, set(read))
+    rc, got, err = shim_run(exe, d, args, count, set(read),
+                            resident=resident)
     assert rc == 0, err
     res = [None] * len(outs)
     for k, j in read.items():
@@ -76,27 +86,22 @@ def _run(exe, d, params, count, outs):
     return res
 
 
-def _shim_deblock(exe, d, planes, maps, sharp, bd):
-    """Both passes through the shim: the vertical edges of `planes`
-    (tensors, read through their row stride) into new planes, then the
-    horizontal edges of those."""
-    cur = list(planes)
-    for axis in (0, 1):
-        dst = [torch.zeros(p.shape, dtype=torch.int32) for p in cur]
-        params = deblock._params(axis, sharp, bd, cur, dst,
-                                 [m[axis] for m in maps])
-        cur = [torch.as_tensor(a.copy())
-               for a in _run(exe, d, params, len(cur), dst)]
-    return cur
+def _shim_deblock(exe, d, planes, maps, sharp, bd, resident=0):
+    """Both passes of `planes` (tensors, read through their row stride)
+    through the shim, one launch, into new planes."""
+    dst = [torch.zeros(p.shape, dtype=torch.int32) for p in planes]
+    params = deblock._params(sharp, bd, planes, dst, maps)
+    return [torch.as_tensor(a.copy())
+            for a in _run(exe, d, params, len(planes), dst, resident)]
 
 
-def _check_deblock(exe, d, planes, maps, sharp, bd):
+def _check_deblock(exe, d, planes, maps, sharp, bd, resident=0):
     """The shim's deblock byte-equal to `_deblock_plain`; returns the
     pixels the filters changed."""
     tmaps = tuple(tuple(tuple(torch.as_tensor(np.asarray(m, np.int32))
                               for m in pair) for pair in pm) for pm in maps)
     want = deblock._deblock_plain(tuple(planes), tmaps, sharp, bd)
-    got = _shim_deblock(exe, d, planes, tmaps, sharp, bd)
+    got = _shim_deblock(exe, d, planes, tmaps, sharp, bd, resident)
     changed = 0
     for g, w, p in zip(got, want, planes):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
@@ -143,6 +148,41 @@ def test_shim_deblock_matches_plain_at_odd_sizes(sharp, shims, tmp_path):
     assert changed > 0
 
 
+# output tile of a block of csrc/deblock.cu (kTileH = kTileW)
+DEBLOCK_TILE = 64
+
+
+@pytest.mark.parametrize("resident", [0, 2])
+@pytest.mark.parametrize("kind", ["fit", "tx"])
+def test_shim_deblock_matches_plain_across_tiles(kind, resident, shims,
+                                                 tmp_path):
+    """Planes of several tiles, cut by the planes' edges (luma 150x205:
+    3x4 tiles, the last row and column part-filled; 4:2:0 chroma 75x103:
+    2x2), read through a row stride.  On stress maps whose edges 14-18
+    in both directions (pixels 56-72, across the tile boundary at 64)
+    all have length 14, so that wide filters on both sides of a boundary
+    write each other's pixels and the halo's, and on transform-size
+    maps.  The pixels within 24 of those boundaries vary by at most the
+    flat threshold (2 either way of 512 at 10 bits), so that the wide
+    filters there run, also those of the edge just before a tile.  With
+    the blocks one after another and each in a process of its own."""
+    rng = np.random.default_rng(90 + 2 * resident + (kind == "tx"))
+    bases, planes, maps = seeded_deblock(rng, 150, 205, "420", 10, kind)
+    assert planes[0].shape[1] > 3 * DEBLOCK_TILE and \
+        planes[1].shape[0] > DEBLOCK_TILE
+    near = slice(DEBLOCK_TILE - 24, DEBLOCK_TILE + 24)
+    for b in bases:
+        for region in ((near, slice(None)), (slice(None), near)):
+            b[region] = 512 + rng.integers(-2, 3, b[region].shape)
+    if kind == "fit":
+        for (fv, _), (fh, _) in maps:
+            fv[:, 14:19] = fh[:, 14:19] = 14
+    views = [torch.as_tensor(b)[:p.shape[0], :p.shape[1]]
+             for b, p in zip(bases, planes)]
+    assert _check_deblock(shims["deblock"], tmp_path, views, maps, 3, 10,
+                          resident) > 0
+
+
 @pytest.mark.parametrize("name", ["odd", "tiles", "mono", "grain10",
                                   "qm_444", "sres_lr"])
 def test_shim_deblock_matches_plain_on_stream_maps(name, shims, tmp_path,
@@ -164,7 +204,7 @@ def test_shim_deblock_matches_plain_on_stream_maps(name, shims, tmp_path,
     assert n >= 1
 
 
-def _check_wiener(exe, d, cdef_p, pre_p, args, bd):
+def _check_wiener(exe, d, cdef_p, pre_p, args, bd, resident=0):
     """The shim's Wiener pass over the planes with arguments, one launch,
     byte-equal to `_wiener_plain`; returns the pixels it changed."""
     targs = [None if a is None else tuple(torch.as_tensor(x) for x in a)
@@ -174,7 +214,7 @@ def _check_wiener(exe, d, cdef_p, pre_p, args, bd):
     outs = [torch.zeros(cdef_p[p].shape, dtype=torch.int32) for p in todo]
     got = _run(exe, d, lr._params(bd, [(cdef_p[p], pre_p[p], o, targs[p])
                                        for p, o in zip(todo, outs)]),
-               len(todo), outs)
+               len(todo), outs, resident)
     changed = 0
     for p, g in zip(todo, got):
         np.testing.assert_array_equal(g, want[p].numpy())
@@ -205,6 +245,83 @@ def test_shim_wiener_matches_plain_at_1080p_unit_rows(plane, bd, shims,
     cdef_p, pre_p = (torch.as_tensor(b)[:, :w] for b in bases)
     assert _check_wiener(shims["wiener"], tmp_path, [cdef_p], [pre_p],
                          [cut], bd) > 0
+
+
+# output tile of a block of csrc/wiener.cu (kTileH x kTileW), and the
+# keys whose rows it holds at once (kChunk)
+WIENER_TILE = (32, 64)
+WIENER_CHUNK = 64
+
+
+def _tile_keys(args):
+    """The most distinct (source row, plane, unit row) keys that a tile
+    of the kernel (WIENER_TILE[0] rows) has on these arguments."""
+    uy, _, _, _, _, vr, inside = (np.asarray(a) for a in args)
+    most = 0
+    for y0 in range(0, len(uy), WIENER_TILE[0]):
+        ys = slice(y0, y0 + WIENER_TILE[0])
+        most = max(most, len(set(zip(
+            vr[:, ys].ravel(), inside[:, ys].ravel(),
+            np.broadcast_to(uy[ys], vr[:, ys].shape).ravel()))))
+    return most
+
+
+def _strided_planes(rng, h, w, bd, noise):
+    """Seeded post- and pre-CDEF planes [h, w], views of wider buffers."""
+    bases = [np.zeros((h, w + 3), np.int32) for _ in range(2)]
+    for b in bases:
+        b[:, :w] = smooth_plane(rng, h, w, bd, noise)
+    return [torch.as_tensor(b)[:, :w] for b in bases]
+
+
+@pytest.mark.parametrize("resident", [0, 2])
+@pytest.mark.parametrize("plane", [0, 1])
+def test_shim_wiener_matches_plain_across_tiles(plane, resident, shims,
+                                                tmp_path):
+    """Cuts of a 1080p 4:2:0 frame's plane several tiles high and wide,
+    whose tiles straddle stripe boundaries, a unit-row boundary and a
+    unit-column boundary (luma rows 203-332 across 248 and 312, columns
+    190-329 across 256; chroma rows 70-199 across 92, 124, 156 and 188,
+    columns 95-164 across 128), so that a tile has more than kTileH + 6
+    keys.
+    With the blocks one after another and each in a process of its
+    own."""
+    rng = np.random.default_rng(60 + plane + resident)
+    args, _, _ = seeded_wiener_args(rng, 1920, 1080, [256, 128, 128], plane)
+    rows, cols = {0: (slice(203, 333), slice(190, 330)),
+                  1: (slice(70, 200), slice(95, 165))}[plane]
+    cut = cut_wiener_args(args, rows, cols)
+    h, w = rows.stop - rows.start, cols.stop - cols.start
+    assert h > 3 * WIENER_TILE[0] and w > WIENER_TILE[1]
+    assert len(set(cut[0])) == 2 and len(set(cut[1])) == 2
+    assert _tile_keys(cut) > WIENER_TILE[0] + 6
+    cdef_p, pre_p = _strided_planes(rng, h, w, 10, 160)
+    assert _check_wiener(shims["wiener"], tmp_path, [cdef_p], [pre_p],
+                         [cut], 10, resident) > 0
+
+
+@pytest.mark.parametrize("resident", [0, 2])
+def test_shim_wiener_matches_plain_on_any_rows(resident, shims, tmp_path):
+    """Arguments the wrapper takes but no stream gives: each (tap, row)
+    reads a seeded source row from a seeded plane, and each row and
+    column has a seeded unit, so a tile has up to 7 x kTileH distinct
+    keys, more than three chunks of them; 12 bits."""
+    rng = np.random.default_rng(77 + resident)
+    H, W, UR, UC = 150, 90, 4, 3
+
+    def taps():
+        t = rng.integers(-5, 10, (UR, UC, 3))
+        return np.concatenate([t, 128 - 2 * t.sum(2, keepdims=True),
+                               t[:, :, ::-1]], 2).astype(np.int32)
+    args = (rng.integers(0, UR, H).astype(np.int32),
+            rng.integers(0, UC, W).astype(np.int32), taps(), taps(),
+            (rng.random((UR, UC)) < 0.8).astype(np.int32),
+            rng.integers(0, H, (7, H)).astype(np.int32),
+            rng.random((7, H)) < 0.5)
+    assert _tile_keys(args) > 3 * WIENER_CHUNK
+    cdef_p, pre_p = _strided_planes(rng, H, W, 12, 600)
+    assert _check_wiener(shims["wiener"], tmp_path, [cdef_p], [pre_p],
+                         [args], 12, resident) > 0
 
 
 @pytest.mark.parametrize("name", ["lr", "sres_lr"])
@@ -301,6 +418,15 @@ def test_postfilter_constants_locked(name, mod):
         mod.MAX_PLANES
     fns, argtypes = cuda_build.KERNELS[name]
     assert fns == (ENTRIES[name],)
+    # the tiles the shim cases cut their planes into
+    tile = {"deblock": (DEBLOCK_TILE, DEBLOCK_TILE),
+            "wiener": WIENER_TILE}.get(name)
+    if tile:
+        assert tuple(int(re.search(r"k%s = (\d+);" % k, src).group(1))
+                     for k in ("TileH", "TileW")) == tile
+    if name == "wiener":
+        assert int(re.search(r"kChunk = (\d+);", src).group(1)) == \
+            WIENER_CHUNK
     sig = re.search(r'extern "C" int %s\((.*?)\)' % ENTRIES[name], src,
                     re.S).group(1)
     assert len(sig.split(",")) == len(argtypes) == 3

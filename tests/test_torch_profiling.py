@@ -2,8 +2,10 @@
 what lies between the markers is kept, a trace that lost records is
 taken again, and where no trace of a named kernel is whole, the last
 such kernels a trace kept are taken; where none kept them,
-`chip_smoke.kernel_ms` times the calls queued behind a spin kernel (the
-profiler itself needs the card)."""
+`chip_smoke.traced` and the sharded worker time the kernels from CUDA
+events around each launch, behind a spin kernel, where fn launches any
+(`profiling.launch_ms`), else the calls queued behind a spin kernel (the
+profiler and CUDA events themselves need the card)."""
 from types import SimpleNamespace
 
 import pytest
@@ -130,23 +132,71 @@ def test_tail_events_without_the_last_marker():
 
 def test_kernel_ms_times_queued_calls_when_every_trace_lost_records(
         monkeypatch, capsys):
-    """`chip_smoke.kernel_ms` (one kernel a call): where every trace lost
-    records, the calls queued behind a spin kernel are timed instead, and
-    the log says so; other errors pass through."""
+    """`chip_smoke.kernel_ms` (one kernel a call) and `chip_smoke.traced`
+    (any calls): where every trace lost records, the kernels are timed
+    from CUDA events around each launch, or where fn launched none
+    through `cuda_build.launch`, the calls queued behind a spin kernel;
+    the kernels are not counted, and the log says so; other errors pass
+    through."""
     from torch_port_helpers import _ROOT
     monkeypatch.syspath_prepend(_ROOT)
     import chip_smoke as cs
+    asked = []
 
-    def lost(*_):
+    def lost(fn, iters, name=None):
+        asked.append(name)
         raise profiling.RecordsLost("the profiler lost records")
-    monkeypatch.setattr(cs, "traced", lost)
+    monkeypatch.setattr(cs, "_device_events", lost)
     monkeypatch.setattr(cs, "queued_ms", lambda fn, iters: 0.25 + iters)
+    monkeypatch.setattr(profiling, "launch_ms", lambda fn, iters: None)
     assert cs.kernel_ms(None, KERNEL, 50) == 50.25
+    assert cs.traced(None, "deblock", 3, one_each=False) == (3.25, None,
+                                                             3.25)
+    monkeypatch.setattr(profiling, "launch_ms",
+                        lambda fn, iters: (0.125, 1.0))
+    assert cs.kernel_ms(None, KERNEL, 50) == 0.125
+    assert cs.traced(None, KERNEL, 3) == (3.25, None, 0.125)
+    # one kernel a call: a trace is whole by its count of that kernel
+    assert asked == [KERNEL, None, KERNEL, KERNEL]
     out = capsys.readouterr().out
     assert "lost records" in out and "queued behind a spin kernel" in out
+    assert "around each launch behind a spin kernel 0.125 ms" in out
 
     def broken(*_):
         raise RuntimeError("CUDA error")
-    monkeypatch.setattr(cs, "traced", broken)
+    monkeypatch.setattr(cs, "_device_events", broken)
     with pytest.raises(RuntimeError, match="CUDA error"):
         cs.kernel_ms(None, KERNEL, 50)
+
+
+def test_sharded_worker_times_shard_calls_when_every_trace_lost_records(
+        monkeypatch):
+    """The sharded worker's `_time_cdef`: where every rank's traces lost
+    records, each launch is timed with CUDA events instead
+    (`profiling.launch_ms`), and its record says so."""
+    from av1dec_tpu_torch.parallel import worker
+
+    def lost(*_):
+        raise profiling.RecordsLost("the profiler lost records")
+    monkeypatch.setattr(profiling, "complete_events", lost)
+    monkeypatch.setattr(profiling, "launch_ms",
+                        lambda call, iters: (0.5 + iters, 1.0))
+    rec = worker._time_cdef(None, None, 8, None, 4)
+    assert rec == {"kernel_ms": 4.5, "kernels_per_call": 1.0,
+                   "kernel_timed_by": "CUDA events around each launch",
+                   "halo_ms": 0.0}
+
+
+def test_launch_ms_is_none_when_nothing_launched():
+    """`profiling.launch_ms` restores every module's `launch` and gives
+    None when fn launched no kernel through `cuda_build.launch` (as the
+    plain versions and another checkout's wrappers)."""
+    from av1dec_tpu_torch.ops.kernels import cuda_build, deblock
+    real = cuda_build.launch
+    seen = []
+
+    def fn():
+        seen.append(deblock.launch is not real)
+    assert profiling.launch_ms(fn, 3) is None
+    assert seen == [True] * 3
+    assert deblock.launch is real and cuda_build.launch is real

@@ -11,8 +11,8 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(_ROOT, "av1dec_tpu_torch", "testdata")
-BIG = ("bench_1080p_intra", "bench_1080p_inter", "bench_1080p_host",
-       "bench_1080p_host_cq40", "bench_1080p_compound")
+BIG = ("bench_1080p_intra", "bench_1080p_intra_lf", "bench_1080p_inter",
+       "bench_1080p_host", "bench_1080p_host_cq40", "bench_1080p_compound")
 
 
 def manifest():

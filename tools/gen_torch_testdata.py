@@ -4,6 +4,9 @@ Writes `av1dec_tpu_torch/testdata/`:
 
 - `bench_1080p_intra.ivf`: the 1920x1080 8-frame all-intra stream, made
   exactly as `bench.py:ensure_stream` makes it (seed 5);
+- `bench_1080p_intra_lf.ivf` (BIG_LF): the same content and seed at
+  cq-level LF_CQ, where libaom picks a loop-filter level in every frame
+  (at cq-level 40 it picks 0), so the device deblock runs at 1080p;
 - `bench_1080p_inter.ivf`: the 1920x1080 low-delay stream (1 key frame,
   7 inter frames; OBMC, warped motion, masked compound, inter-intra and
   global motion off), made exactly as `bench.py:ensure_inter_stream`
@@ -72,6 +75,9 @@ sys.path.insert(0, os.path.join(_REPO, "tests"))
 
 OUT = os.path.join(_REPO, "av1dec_tpu_torch", "testdata")
 BIG = "bench_1080p_intra"
+# BIG at cq-level LF_CQ: every frame has a loop-filter level
+BIG_LF = "bench_1080p_intra_lf"
+LF_CQ = 55
 BIG_INTER = "bench_1080p_inter"
 BIG_HOST = "bench_1080p_host"
 HOST_FRAMES = 8  # frames of BIG_HOST: 1 key frame, then inter frames
@@ -245,15 +251,16 @@ def _encode_small(name, spec, path):
     aomffi.write_ivf(path, pkts, w, h)
 
 
-def _encode_1080p(path):
-    """Same content, encoder settings and seed as bench.ensure_stream."""
+def _encode_1080p(path, cq=40):
+    """Same content, encoder settings and seed as bench.ensure_stream (at
+    cq-level `cq`)."""
     import aomffi
     W, H, FRAMES = 1920, 1080, 8
     rng = np.random.default_rng(5)
     yy, xx = np.mgrid[:H, :W]
     enc = aomffi.AomEncoder(
         W, H, cpu_used=6, kf_max_dist=1, lag=0,
-        options=[("cq-level", "40"), ("tile-columns", "1"),
+        options=[("cq-level", str(cq)), ("tile-columns", "1"),
                  ("tile-rows", "1")], end_usage=3)
     pkts = []
     for i in range(FRAMES):
@@ -444,11 +451,14 @@ def main():
                           HOST_CASES + [GOP_CASE] + sorted(COMPOUND_CASES) +
                           [OCCLUSION_CASE])
     if not args.skip_1080p and not args.only:
-        names = names + [BIG, BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND]
+        names = names + [BIG, BIG_LF, BIG_INTER, BIG_HOST, BIG_HOST40,
+                         BIG_COMPOUND]
     for name in names:
         path = os.path.join(OUT, name + ".ivf")
         if name == BIG:
             _encode_1080p(path)
+        elif name == BIG_LF:
+            _encode_1080p(path, LF_CQ)
         elif name == BIG_INTER:
             _encode_1080p_inter(path)
         elif name == BIG_HOST:
@@ -485,7 +495,7 @@ def main():
             continue
         manifest[name] = {"frames": ref, "bytes": size}
         if name in (BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND) or \
-                name not in cases and name != BIG:
+                name not in cases and name not in (BIG, BIG_LF):
             manifest[name]["inter"] = True
         if host:
             manifest[name]["host"] = True
