@@ -72,8 +72,9 @@ Phases (each raises on failure, so the script exits non-zero):
      across stripe, unit-row and unit-column boundaries (the cq-40 key
      frame's own inputs in 8b); `superres` (every plane in one launch)
      against `_superres_plain` on 1080p 4:2:0 upscales built by
-     `_superres_args`' arithmetic at denominators 9 and 16, the final
-     and the pre-CDEF planes (6 in one launch); then each kernel's
+     `_superres_args`' arithmetic at denominators 9, 12, 14 and 16 and
+     8, 10 and 12 bits, 3 planes or the final and the pre-CDEF planes
+     (6 in one launch); then each kernel's
      device ms (torch.profiler), kernels a call, wrapper-inclusive ms,
      the plain version's device ms and kernels and its ms, and the bound
      (bytes and operations: `deblock_work`, `wiener_work`,
@@ -90,7 +91,16 @@ Phases (each raises on failure, so the script exits non-zero):
       device path with one `deblock` launch, a timed pass (fps, per-stage
       ms, the `postfilter` stage among them); then `deblock` on frame
       0's own planes and maps, byte-equal to `_deblock_plain`
-      POST_REPEATS runs, and its times against its bound;
+      POST_REPEATS runs, and its times against its bound
+   c. the same decode of the committed 1080p all-intra stream with
+      superres at denominator 16 (`bench_1080p_intra_sres`: every frame
+      coded 960 wide, upscaled to 1920; libaom chose a loop-filter level
+      in each and no restoration): every frame's MD5 against the
+      manifest, every frame on the device path with exactly one
+      `superres` launch, a timed pass (fps, per-stage ms); then
+      `superres` on frame 0's own planes and tables, byte-equal to
+      `_superres_plain` POST_REPEATS runs, and its times against its
+      bound;
 4. entry point: `api.Decoder(device="cuda")` on every committed small
    stream, intra and inter, against the manifest (film grain applied),
    each coded frame on the recon path the manifest records (the device
@@ -191,19 +201,19 @@ the workers' `deblock_launches`), the superres kernel's to the
 device-path frames with superres and the Wiener kernel's to those whose
 Wiener LR ran on the device, with no plain MC pass, residual, deblock,
 superres or Wiener call on the card.
-The `launches` of the `{"kernels": [...]}` line count phases 3, 3b, 5, 6,
-8a-c and 8e for `cdef_frame` (44), and phase 7's checked calls (counted
+The `launches` of the `{"kernels": [...]}` line count phases 3, 3b, 3c, 5,
+6, 8a-c and 8e for `cdef_frame`, and phase 7's checked calls (counted
 in each worker process: 4 ranks x 2 calls + 1 NCCL) and phase 8d-e
 (2 + 4 + 2) for `cdef_filter` (17), and for `wavefront_scan` the
-launches of every checked scan of phases 3-8 in this process (3, 3b, 4, 5
-and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch),
+launches of every checked scan of phases 3-8 in this process (3, 3b, 3c,
+4, 5 and 7a, 6, 8a-c, 8e; its times are phase 2's on the 1080p batch),
 and for `mc`, `itx`, `deblock`, `superres` and `wiener` their launches
 in every checked decode of phases 3-8 in this process (their times:
 `mc` on the inter stream's frame 7, phase 5, `itx` on the host stream's
 last host frame, phase 6, `deblock` on frame 0 of
 `bench_1080p_intra_lf`, phase 3b (the other 1080p streams have no
-loop-filter level: libaom chose level 0), `superres` on
-phase 2's 1080p upscale at denominator 9,
+loop-filter level: libaom chose level 0, but for `bench_1080p_intra_sres`),
+`superres` on frame 0 of `bench_1080p_intra_sres`, phase 3c,
 `wiener` on the cq-40 key frame, phase 8b).
 `cdef_frame`'s times there are phase 2's (1080p 4:2:0, random all-tap
 strengths); `cdef_filter`'s are those of its `Decoder`-path launch,
@@ -236,7 +246,10 @@ BIG_INTER = "bench_1080p_inter"
 BIG_HOST = "bench_1080p_host"
 BIG_HOST40 = "bench_1080p_host_cq40"
 BIG_COMPOUND = "bench_1080p_compound"
-BIGS = (BIG, BIG_LF, BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND)
+# BIG with superres at denominator 16: every frame upscales 960 -> 1920
+BIG_SRES = "bench_1080p_intra_sres"
+BIGS = (BIG, BIG_LF, BIG_SRES, BIG_INTER, BIG_HOST, BIG_HOST40,
+        BIG_COMPOUND)
 SCREEN = "screen"  # phase 8c: its TU 0 is an intra block copy key frame
 SHARDS = (2, 4)  # phase 8d: in-process column shards of sharded CDEF
 INTER_FRAMES = 7  # inter frames of BIG_INTER (after its key frame)
@@ -1207,25 +1220,18 @@ def phase_main_path(manifest, dev, int_rate):
     return launches, seen[0]
 
 
-def phase_lf_stream(manifest, dev, int_rate):
-    """3b: `decode_stream_batched(device="cuda", batch=4)` on BIG_LF,
-    whose every frame has a loop-filter level: every frame's MD5 against
-    the manifest, every frame on the device path (no host-path frame)
-    with one deblock launch (`Launches`); a timed pass (fps, per-stage
-    ms); then the deblock kernel on frame 0's own planes and maps,
-    byte-equal to `_deblock_plain` POST_REPEATS runs, and its times.
-    Returns the `cdef_frame` launches of the checked pass and the deblock
-    kernel's entry."""
+def device_stream(manifest, name, dev, label):
+    """`decode_stream_batched(device="cuda", batch=4)` on the 1080p stream
+    `name`: every frame's MD5 against the manifest, every frame on the
+    device path (no host-path frame), one `cdef_frame` launch per frame
+    with CDEF on, the other kernels' launches held by `Launches`; then a
+    timed pass (`fps_<label>`, per-stage ms).  Returns the `cdef_frame`
+    launches of the checked pass and its `Launches` block."""
     from av1dec_tpu_torch import api
-    from av1dec_tpu_torch.ops.kernels import cdef, deblock
-    from av1dec_tpu_torch.pipeline import device_recon
-    datas = read_tus(BIG_LF)
-    want = manifest[BIG_LF]["frames"]
+    from av1dec_tpu_torch.ops.kernels import cdef
+    datas = read_tus(name)
+    want = manifest[name]["frames"]
     n_cdef = cdef_frames(datas)
-    with_lf = deblock_frames(BIG_LF, len(datas))
-    if not all(with_lf):
-        raise AssertionError(f"{BIG_LF}: frames without a loop-filter "
-                             f"level: {with_lf}")
     host = []
     real_host = api.FrameRecon
 
@@ -1237,22 +1243,21 @@ def phase_lf_stream(manifest, dev, int_rate):
     api.FrameRecon = Host
     t0 = time.perf_counter()
     try:
-        with Launches(BIG_LF) as scans:
+        with Launches(name) as scans:
             out = api.decode_stream_batched(datas, device=dev, batch=4)
     finally:
         api.FrameRecon = real_host
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
-    check_launches(cdef, n_cdef, BIG_LF)
+    check_launches(cdef, n_cdef, name)
     got = [api.display_md5(p, 8, 1920, 1080, (1, 1)) for p in out]
     bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
-    if len(got) != len(want) or bad or host or \
-            scans.deblocks != len(want):
-        raise AssertionError(f"{BIG_LF}: frames {bad} of {len(want)} differ "
+    if len(got) != len(want) or bad or host:
+        raise AssertionError(f"{name}: frames {bad} of {len(want)} differ "
                              f"from the manifest, {len(host)} on the host "
-                             f"path, {scans.deblocks} deblocked on the card")
-    log(f"loop-filter stream: {len(got)}/{len(want)} frames of {BIG_LF} "
-        f"match the manifest, all on the device path; cdef_frame launches "
+                             f"path")
+    log(f"{label} stream: {len(got)}/{len(want)} frames of {name} match "
+        f"the manifest, all on the device path; cdef_frame launches "
         f"{launches} = {n_cdef} frames with CDEF on; {scans}; first pass "
         f"{t_first:.3f} s")
     t0 = time.perf_counter()
@@ -1260,24 +1265,56 @@ def phase_lf_stream(manifest, dev, int_rate):
     dt = time.perf_counter() - t0
     tm = {}
     api.decode_stream_batched(datas, device=dev, batch=4, timings=tm)
-    log(json.dumps({"fps_1080p_intra_lf": len(datas) / dt, "seconds": dt,
+    log(json.dumps({f"fps_{label}": len(datas) / dt, "seconds": dt,
                     "frames": len(datas), "stage_ms_per_frame": {
                         k: round(tm[k] * 1e3 / len(datas), 3)
                         for k in api.STAGES}, "card": card_line()}))
+    return launches, scans
 
-    # the deblock kernel on the stream's first frame, as the chain gives it
+
+def first_call(name, dev, fn_name):
+    """The arguments of the first `device_recon.<fn_name>` call of the
+    decode of the 1080p stream `name`'s first TU on the card, as the
+    chain gives them; that frame held to the manifest."""
+    from av1dec_tpu_torch import api
+    from av1dec_tpu_torch.pipeline import device_recon
+    with open(os.path.join(TESTDATA, "manifest.json")) as f:
+        want = json.load(f)[name]["frames"][:1]
     seen = []
-    real = device_recon.deblock_planes
+    real = getattr(device_recon, fn_name)
 
     def keep(*args):
         seen.append(args)
         return real(*args)
-    device_recon.deblock_planes = keep
+    setattr(device_recon, fn_name, keep)
     try:
-        api.decode_stream_batched(datas[:1], device=dev, batch=1)
+        out = api.decode_stream_batched(read_tus(name)[:1], device=dev,
+                                        batch=1)
     finally:
-        device_recon.deblock_planes = real
-    args = seen[0]
+        setattr(device_recon, fn_name, real)
+    got = [api.display_md5(p, 8, 1920, 1080, (1, 1)) for p in out]
+    if got != want or not seen:
+        raise AssertionError(f"{name} frame 0: equal to the manifest "
+                             f"{got == want}, {fn_name} calls {len(seen)}")
+    return seen[0]
+
+
+def phase_lf_stream(manifest, dev, int_rate):
+    """3b: `device_stream` on BIG_LF, whose every frame has a loop-filter
+    level, each frame with one deblock launch; then the deblock kernel on
+    frame 0's own planes and maps, byte-equal to `_deblock_plain`
+    POST_REPEATS runs, and its times.  Returns the `cdef_frame` launches
+    of the checked pass and the deblock kernel's entry."""
+    from av1dec_tpu_torch.ops.kernels import deblock
+    with_lf = deblock_frames(BIG_LF, len(read_tus(BIG_LF)))
+    if not all(with_lf):
+        raise AssertionError(f"{BIG_LF}: frames without a loop-filter "
+                             f"level: {with_lf}")
+    launches, scans = device_stream(manifest, BIG_LF, dev, "1080p_intra_lf")
+    if scans.deblocks != len(with_lf):
+        raise AssertionError(f"{BIG_LF}: {scans.deblocks} frames deblocked "
+                             f"on the card of {len(with_lf)}")
+    args = first_call(BIG_LF, dev, "deblock_planes")
     what = f"{BIG_LF} frame 0 (its planes and maps)"
     dbl = (deblock.deblock_planes, deblock._deblock_plain)
     check_post("deblock", *dbl, deblock, args, what, DEBLOCK_PER_FRAME)
@@ -1285,6 +1322,32 @@ def phase_lf_stream(manifest, dev, int_rate):
         f"{POST_REPEATS} runs, one launch each; max abs err 0")
     return launches, time_post("deblock", *dbl, args, deblock_work(*args),
                                int_rate, what)
+
+
+def phase_sres_stream(manifest, dev, int_rate):
+    """3c: `device_stream` on BIG_SRES, whose every frame is coded 960
+    wide and upscaled to 1920 (superres at denominator 16), each frame
+    with exactly one superres launch; then the superres kernel on frame
+    0's own planes and tables, byte-equal to `_superres_plain`
+    POST_REPEATS runs, and its times.  Returns the `cdef_frame` launches
+    of the checked pass and the superres kernel's entry."""
+    from av1dec_tpu_torch.ops.kernels import superres
+    frames = len(manifest[BIG_SRES]["frames"])
+    launches, scans = device_stream(manifest, BIG_SRES, dev,
+                                    "1080p_intra_sres")
+    if scans.upscales != frames:
+        raise AssertionError(f"{BIG_SRES}: {scans.upscales} frames upscaled "
+                             f"on the card of {frames}")
+    args = first_call(BIG_SRES, dev, "superres_planes")
+    what = (f"{BIG_SRES} frame 0 (its {len(args[0])} planes, "
+            f"{args[0][0].shape[1]} -> {args[1][0][0].shape[0]} columns)")
+    sr = (superres.superres_planes, superres._superres_plain)
+    check_post("superres", *sr, superres, args, what)
+    log(f"kernel superres: byte-equal to _superres_plain on {what}, "
+        f"{POST_REPEATS} runs, one launch each; max abs err 0")
+    return launches, time_post(
+        "superres", *sr, args, superres_work(args[0], args[1], sr[1](*args)),
+        int_rate, what)
 
 
 def phase_entry_point(manifest, dev):
@@ -1720,6 +1783,8 @@ SUPERRES_OPS_PER_PX = 8 + 2 + 2
 # runs of each postfilter kernel on each checked input, each
 # byte-compared with its plain version
 POST_REPEATS = 5
+# phase 2: superres denominators checked (each at 8, 10 and 12 bits)
+SUPERRES_DENOMS = (9, 12, 14, 16)
 # phase 2: seeded deblock frames (odd sizes, every format, map shapes)
 DEBLOCK_SIZE = (61, 83)
 
@@ -1851,10 +1916,11 @@ def phase_postfilter(dev, int_rate):
     1080p 4:2:0); Wiener on seeded units across stripe, unit-row and
     unit-column boundaries at 1080p 4:2:0 (8, 10, 12 bits; the key
     frame of BIG_HOST40 in phase 8b); superres on 1080p 4:2:0 upscales
-    at denominators 9 and 16 (`_superres_args`' arithmetic), the final
-    and the pre-CDEF planes in one launch.  Then each kernel's times at
-    1080p 4:2:0 (seeded; deblock on both kinds of maps; its entry is
-    phase 3b's, on a stream's frame).  Returns the superres entry."""
+    at SUPERRES_DENOMS (`_superres_args`' arithmetic) and 8, 10 and 12
+    bits, 3 planes or the final and the pre-CDEF planes (6) in one
+    launch.  Then each kernel's times at 1080p 4:2:0 (seeded; deblock on
+    both kinds of maps; the entries of deblock and superres are phase
+    3b's and 3c's, on a stream's frame).""" 
     from torch_port_helpers import (FORMATS, seeded_deblock,
                                     seeded_wiener_args, smooth_plane,
                                     superres_case)
@@ -1941,29 +2007,32 @@ def phase_postfilter(dev, int_rate):
               "1080p 4:2:0 12-bit, seeded units")
 
     n = launches = 0
-    for denom in (9, 16):
-        for bd in (8, 10):
-            planes, sargs = superres_case(rng, 1920, 1080, denom, "420", bd)
-            pre = [t(smooth_plane(rng, *p.shape, bd, 9)) for p in planes]
-            sargs = [tuple(t(x) for x in a) for a in sargs]
-            args = ([t(p) for p in planes] + pre, sargs * 2, bd)
-            launches += check_post("superres", superres.superres_planes,
-                                   superres._superres_plain, superres, args,
-                                   f"1080p 4:2:0 {bd}-bit denominator "
-                                   f"{denom}")
-            n += 1
+    for i, (denom, bd) in enumerate(itertools.product(SUPERRES_DENOMS,
+                                                      (8, 10, 12))):
+        planes, sargs = superres_case(rng, 1920, 1080, denom, "420", bd)
+        planes = [t(p) for p in planes]
+        sargs = [tuple(t(x) for x in a) for a in sargs]
+        if i % 2 == 0:  # with the pre-CDEF planes, 6 in one launch
+            planes += [t(smooth_plane(rng, *p.shape, bd, 9)) for p in planes]
+            sargs *= 2
+        launches += check_post("superres", superres.superres_planes,
+                               superres._superres_plain, superres,
+                               (planes, sargs, bd),
+                               f"1080p 4:2:0 {bd}-bit denominator {denom}, "
+                               f"{len(planes)} planes")
+        n += 1
     log(f"kernel superres: byte-equal to _superres_plain on {n} 1080p "
-        f"4:2:0 upscales (denominators 9 and 16, 8/10-bit; final and "
-        f"pre-CDEF planes, 6 in one launch), {POST_REPEATS} runs each; "
-        f"{launches} launches; max abs err 0")
+        f"4:2:0 upscales (denominators {SUPERRES_DENOMS} x 8/10/12-bit; "
+        f"3 planes, or the final and pre-CDEF planes, 6 in one launch), "
+        f"{POST_REPEATS} runs each; {launches} launches; max abs err 0")
+    # the yardstick of the port's first superres kernel (its PERF.md row)
     planes, sargs = superres_case(rng, 1920, 1080, 9, "420", 8)
     args = ([t(p) for p in planes], [tuple(t(x) for x in a)
                                      for a in sargs], 8)
     outs = superres._superres_plain(*args)
-    return time_post(
-        "superres", superres.superres_planes, superres._superres_plain, args,
-        superres_work(args[0], args[1], outs), int_rate,
-        "1080p 4:2:0 8-bit, denominator 9 (1707 -> 1920)")
+    time_post("superres", superres.superres_planes, superres._superres_plain,
+              args, superres_work(args[0], args[1], outs), int_rate,
+              "1080p 4:2:0 8-bit, denominator 9 (1707 -> 1920)")
 
 
 def phase_host(manifest, dev, int_rate):
@@ -2596,12 +2665,14 @@ def main():
     scan = timed_phase("2 (scan)", phase_scan, manifest, dev, int_rate)
     timed_phase("2 (MC)", phase_mc, dev)
     timed_phase("2 (B7)", phase_b7, dev)
-    superres_entry = timed_phase("2 (postfilter)", phase_postfilter, dev,
-                                 int_rate)
+    timed_phase("2 (postfilter)", phase_postfilter, dev, int_rate)
     launches, frame0 = timed_phase("3", phase_main_path, manifest, dev,
                                    int_rate)
     n, deblock_entry = timed_phase("3b", phase_lf_stream, manifest, dev,
                                    int_rate)
+    launches += n
+    n, superres_entry = timed_phase("3c", phase_sres_stream, manifest, dev,
+                                    int_rate)
     launches += n
     timed_phase("4", phase_entry_point, manifest, dev)
     n, mc_entry = timed_phase("5 (with 7a)", phase_inter, manifest, dev,
@@ -2638,7 +2709,7 @@ def main():
     # 5), the residual kernel's on BIG_HOST's last host frame (phase 6),
     # their launches those of every checked decode of phases 3-8; the
     # deblock kernel's its times on BIG_LF's frame 0 (phase 3b), superres's
-    # on a seeded 1080p 4:2:0 upscale (phase 2), Wiener's on BIG_HOST40's
+    # on BIG_SRES's frame 0 (phase 3c), Wiener's on BIG_HOST40's
     # key frame (phase 8b), their launches those of every checked decode
     # of phases 3-8 in this process
     scan["ms"] = scan["device_ms"]

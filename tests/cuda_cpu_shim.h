@@ -23,7 +23,8 @@
 // runner (main, below).  __syncthreads, __syncwarp and __shfl_xor_sync
 // are barriers of the block's or the warp's threads; __shfl_sync,
 // __shfl_up_sync and __ballot_sync are warp exchanges like
-// __shfl_xor_sync, __popc and __ffs the compiler's bit counts; cp.async (__pipeline_memcpy_async) is
+// __shfl_xor_sync, __popc and __ffs the compiler's bit counts; int4 and
+// make_int4 the vector type's fields, __align__ the compiler's attribute; cp.async (__pipeline_memcpy_async) is
 // a memcpy, so __pipeline_commit and __pipeline_wait_prior do nothing; a
 // kernel's dynamic shared memory is cuda_cpu_shim_dynamic_smem();
 // atomicAdd, atomicCAS, cuda::atomic_ref and __threadfence are the host's
@@ -62,11 +63,16 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 #define __constant__
 
 struct uint3 {
   unsigned x = 0, y = 0, z = 0;
 };
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
@@ -371,9 +377,10 @@ extern "C" int wavefront_scan_floor(const long long*, int, void*);
 #endif
 
 // shim DIR ENTRY RESIDENT TICKETS: DIR/params.txt holds one line a
-// parameter, "i VALUE" or "p FILE SHARED"; a pointer parameter points
-// at FILE's bytes (mapped shared when SHARED is 1, and then written back
-// to FILE.out after the launch).  ENTRY: scan or floor, or anything with
+// parameter, "i VALUE", "p FILE SHARED" or "o FILE SHARED OFFSET"; a
+// pointer parameter points at FILE's bytes (mapped shared when SHARED is
+// 1, and then written back to FILE.out after the launch), OFFSET bytes
+// in for "o" (a view that starts inside a buffer).  ENTRY: scan or floor, or anything with
 // CUDA_CPU_SHIM_ENTRY, which is then called; RESIDENT 0 runs the blocks
 // one after another (RESIDENT -n too, with n blocks resident); TICKETS
 // is the entry's int argument.  Prints on
@@ -402,7 +409,9 @@ int main(int argc, char** argv) {
     }
     char name[256];
     int is_shared;
+    long long offset = 0;
     if (std::fscanf(pf, "%255s %d", name, &is_shared) != 2) return 2;
+    if (kind[0] == 'o' && std::fscanf(pf, "%lld", &offset) != 1) return 2;
     FILE* f = std::fopen((dir + "/" + name).c_str(), "rb");
     if (!f) return 2;
     std::fseek(f, 0, SEEK_END);
@@ -419,7 +428,7 @@ int main(int argc, char** argv) {
       return 2;
     std::fclose(f);
     if (is_shared) shared.push_back({name, p, bytes});
-    params.push_back(reinterpret_cast<long long>(p));
+    params.push_back(reinterpret_cast<long long>(p) + offset);
   }
   std::fclose(pf);
   const int tickets = std::atoi(argv[4]);

@@ -10,8 +10,10 @@ unit's rows, which must be filtered with their own output row's
 taps.  (CPU tensors: the plain versions.)
 
 The committed 1080p stream `bench_1080p_intra_lf` has a luma loop-filter
-level in every frame (its headers, parsed by the port; tier-1 decodes
-no 1080p stream), so the card's main path runs deblock at 1080p.
+level in every frame, and `bench_1080p_intra_sres` superres in every
+frame, coded 960 wide and upscaled to 1920 (their headers, parsed by the
+port; tier-1 decodes no 1080p stream), so the card's main path runs
+deblock and superres at 1080p.
 
 Dispatch: `deblock_planes`, `lr_wiener_planes` and `superres_planes`
 run the plain version on CPU tensors (no launch counted), raise on any
@@ -73,6 +75,20 @@ def test_lf_stream_has_a_luma_loop_filter_level_in_every_frame(native_lib):
     assert len(levels) == len(manifest()["bench_1080p_intra_lf"]["frames"])
     assert len(levels) == 8
     assert all(lv[0] > 0 and lv[1] > 0 for lv in levels), levels
+
+
+def test_sres_stream_signals_superres_in_every_frame(native_lib):
+    from av1dec_tpu_torch.bindings import NativeParser
+    from torch_port_helpers import manifest, tus
+    p = NativeParser()
+    hdrs = [hdr for tu in tus("bench_1080p_intra_sres")
+            for hdr in p.parse_tu(tu)]
+    p.close()
+    assert len(hdrs) == len(manifest()["bench_1080p_intra_sres"]["frames"])
+    assert len(hdrs) == 8
+    assert all(h["use_superres"] and h["frame_width"] == 960 and
+               h["upscaled_width"] == 1920 and h["frame_height"] == 1080
+               for h in hdrs), hdrs
 
 
 @pytest.mark.parametrize("bd,sharp", [(8, 0), (8, 5), (10, 2)])

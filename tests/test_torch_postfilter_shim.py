@@ -63,7 +63,8 @@ def shims(tmp_path_factory):
 
 def _run(exe, d, params, count, outs, resident=0):
     """The shim's launch on a parameter list whose tensors may be views
-    at the start of a wider buffer (passed as that buffer); returns the
+    into a wider buffer (passed as that buffer and the view's byte
+    offset in it); returns the
     output tensors `outs`, read back, as arrays.  `resident` 0 runs the
     blocks one after another (their threads as fibers), above 0 each
     block in a process of its own, all at once."""
@@ -73,9 +74,9 @@ def _run(exe, d, params, count, outs, resident=0):
             for j, o in enumerate(outs):
                 if v is o:
                     read[k] = j
-            if v._base is not None:
-                assert v.data_ptr() == v._base.data_ptr()
-                v = v._base
+            if v._base is not None:  # a pointer into its buffer
+                offset = v.data_ptr() - v._base.data_ptr()
+                v = (v._base, offset) if offset else v._base
         args.append(v)
     rc, got, err = shim_run(exe, d, args, count, set(read),
                             resident=resident)
@@ -347,14 +348,14 @@ def test_shim_wiener_matches_plain_on_stream_args(name, shims, tmp_path,
     assert n >= 1
 
 
-def _check_superres(exe, d, planes, args, bd):
+def _check_superres(exe, d, planes, args, bd, resident=0):
     """The shim's upscale of `planes` (tensors) with their tables, one
     launch, byte-equal to `_superres_plain`."""
     targs = [tuple(torch.as_tensor(x) for x in a) for a in args]
     want = superres._superres_plain(planes, targs, bd)
     outs = [torch.zeros(w.shape, dtype=torch.int32) for w in want]
     got = _run(exe, d, superres._params(bd, planes, targs, outs),
-               len(planes), outs)
+               len(planes), outs, resident)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
 
@@ -398,6 +399,138 @@ def test_shim_superres_matches_plain_on_stream_tables(name, shims, tmp_path,
     assert n >= 1
 
 
+# a block of csrc/superres.cu: kBandH output rows x kStripW output
+# columns; the words of its staged row (kPitch), which the block's
+# source span (the least to the greatest column of its tables) and the
+# span's offset in its first 16-byte chunk (up to 3 words) must fit
+SUPERRES_TILE = (32, 128)
+SUPERRES_PITCH = 144
+
+
+def _staged_blocks(args, planes):
+    """Whether each strip of each plane (SUPERRES_TILE[1] output columns)
+    stages its source span in shared memory (the span fits a staged
+    row), from the tables clamped to the row as the kernel clamps them."""
+    out = []
+    for (cols, _), p in zip(args, planes):
+        c = np.clip(np.asarray(cols), 0, p.shape[1] - 1)
+        for x0 in range(0, len(c), SUPERRES_TILE[1]):
+            strip = c[x0:x0 + SUPERRES_TILE[1]]
+            out.append(int(strip.max() - strip.min()) + 1 + 3 <=
+                       SUPERRES_PITCH)
+    return out
+
+
+def _sr_views(rng, shapes, bd, pad=0, offsets=None):
+    """Seeded int32 planes of `shapes`, each a view into a buffer of its
+    own: its rows w + pad apart, starting offsets[i] words in (the
+    kernel then sees a base 4 * offsets[i] bytes past a 16-byte
+    boundary)."""
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        off = offsets[i] if offsets else 0
+        buf = torch.zeros(off + h * (w + pad) + 1, dtype=torch.int32)
+        v = buf[off:off + h * (w + pad)].view(h, w + pad)[:, :w]
+        v.copy_(torch.as_tensor(rng.integers(0, 1 << bd, (h, w))
+                                .astype(np.int32)))
+        out.append(v)
+    return out
+
+
+@pytest.mark.parametrize("denom", list(range(9, 17)))
+def test_superres_tables_fit_the_staged_rows(denom):
+    """For every upscaled width the host's tables can have (2 to 8192
+    luma columns, a 4:2:0 frame's chroma too), each block's source span
+    fits its staged rows, so no superres frame reads its rows through
+    the cache."""
+    rng = np.random.default_rng(160 + denom)
+    widths = list(range(2, 700)) + [1280, 1920, 2560, 3840, 4096, 7680,
+                                    8192] + \
+        list(rng.integers(700, 8192, 40))
+    for W in widths:
+        planes, args = superres_case(rng, int(W), 2, denom, "420", 8)
+        assert all(_staged_blocks(args, planes)), (W, denom)
+
+
+@pytest.mark.parametrize("denom", list(range(9, 17)))
+def test_shim_superres_matches_plain_at_every_denominator(denom, shims,
+                                                          tmp_path):
+    """Every superres denominator on a 4:2:0 frame 301 wide (chroma 151:
+    odd) and 70 high, neither a multiple of the block's strip or band
+    (the last strip and band part-filled); the final planes read through
+    a row stride, the pre-CDEF planes at bases 4, 8 and 12 bytes past a
+    16-byte boundary, 6 planes in one launch; 8, 10 or 12 bits.  Every
+    block stages its source span."""
+    bd = (8, 10, 12)[denom % 3]
+    rng = np.random.default_rng(100 + denom)
+    planes, args = superres_case(rng, 301, 70, denom, "420", bd)
+    shapes = [p.shape for p in planes]
+    assert args[1][0].shape[0] == 151
+    final = _sr_views(rng, shapes, bd, pad=7)
+    pre = _sr_views(rng, shapes, bd, offsets=[1, 2, 3])
+    assert all(p.data_ptr() % 16 for p in pre)
+    assert all(_staged_blocks(args, planes))
+    _check_superres(shims["superres"], tmp_path, final + pre,
+                    list(args) * 2, bd)
+
+
+@pytest.mark.parametrize("resident", [0, 2])
+@pytest.mark.parametrize("fmt,pre", [("mono", False), ("444", False),
+                                     ("420", True)])
+def test_shim_superres_matches_plain_across_blocks(fmt, pre, resident,
+                                                   shims, tmp_path):
+    """1, 3 and 6 planes in one launch (mono; 4:4:4; 4:2:0 with the
+    pre-CDEF planes), each several blocks wide and high (luma 290 x 75
+    from 193 columns at denominator 12: 3 strips, 3 bands, the last of
+    each part-filled), read through a row stride (the pre-CDEF planes at
+    a base 8 bytes past a 16-byte boundary); with the blocks one after
+    another and each in a process of its own."""
+    rng = np.random.default_rng(120 + 2 * resident + len(fmt))
+    planes, args = superres_case(rng, 290, 75, 12, fmt, 10)
+    shapes = [p.shape for p in planes]
+    views = _sr_views(rng, shapes, 10, pad=3)
+    if pre:
+        views += _sr_views(rng, shapes, 10, offsets=[2] * len(shapes))
+        args = list(args) * 2
+    assert len(views) == {"mono": 1, "444": 3, "420": 6}[fmt]
+    assert shapes[0][0] > 2 * SUPERRES_TILE[0] and \
+        args[0][0].shape[0] > 2 * SUPERRES_TILE[1]
+    _check_superres(shims["superres"], tmp_path, views, args, 10, resident)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_shim_superres_matches_plain_on_any_tables(aligned, shims,
+                                                   tmp_path):
+    """Tables the host's arithmetic never builds: seeded columns anywhere
+    in the source row and seeded taps, so that the blocks' spans do not
+    fit a staged row and read the rows through the cache, beside a first
+    strip whose columns are a superres table's (staged), in one launch;
+    the tables 16-byte aligned (vector loads) or 4 bytes past (scalar
+    loads)."""
+    rng = np.random.default_rng(140 + aligned)
+    shapes = [(45, 150), (23, 75)]
+    planes = _sr_views(rng, shapes, 12, pad=2)
+    args = []
+    for h, w in shapes:
+        dw = 2 * w - 7
+        cols = rng.integers(0, w, (dw, 8))
+        x = np.arange(SUPERRES_TILE[1])
+        cols[:SUPERRES_TILE[1]] = np.clip(
+            (x * w // dw)[:, None] + np.arange(8) - 3, 0, w - 1)
+        taps = rng.integers(-30, 100, (dw, 8))
+        tabs = []
+        for tab in (cols, taps):
+            buf = torch.zeros(tab.size + 1, dtype=torch.int32)
+            t = buf[int(not aligned):][:tab.size].view(tab.shape)
+            t.copy_(torch.as_tensor(tab.astype(np.int32)))
+            tabs.append(t)
+        assert (tabs[0].data_ptr() % 16 == 0) == aligned
+        args.append(tuple(tabs))
+    staged = _staged_blocks(args, planes)
+    assert staged[0] and not all(staged)
+    _check_superres(shims["superres"], tmp_path, planes, args, 12)
+
+
 def _enum(src):
     body = re.search(r"enum Param : int \{(.*?)\};", src, re.S).group(1)
     return {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", body)}
@@ -424,6 +557,11 @@ def test_postfilter_constants_locked(name, mod):
     if tile:
         assert tuple(int(re.search(r"k%s = (\d+);" % k, src).group(1))
                      for k in ("TileH", "TileW")) == tile
+    if name == "superres":
+        assert tuple(int(re.search(r"k%s = (\d+);" % k, src).group(1))
+                     for k in ("BandH", "StripW")) == SUPERRES_TILE
+        assert re.search(r"kPitch = kStripW \+ (\d+);", src).group(1) == \
+            str(SUPERRES_PITCH - SUPERRES_TILE[1])
     if name == "wiener":
         assert int(re.search(r"kChunk = (\d+);", src).group(1)) == \
             WIENER_CHUNK

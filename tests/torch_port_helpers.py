@@ -11,8 +11,9 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(_ROOT, "av1dec_tpu_torch", "testdata")
-BIG = ("bench_1080p_intra", "bench_1080p_intra_lf", "bench_1080p_inter",
-       "bench_1080p_host", "bench_1080p_host_cq40", "bench_1080p_compound")
+BIG = ("bench_1080p_intra", "bench_1080p_intra_lf", "bench_1080p_intra_sres",
+       "bench_1080p_inter", "bench_1080p_host", "bench_1080p_host_cq40",
+       "bench_1080p_compound")
 
 
 def manifest():
@@ -223,16 +224,19 @@ def shim_build(d, source, entry=None):
 
 def shim_run(exe, d, params, count, shared, entry="run", resident=0):
     """Run the shim's main on a kernel's parameter list (tensors where it
-    takes a pointer, ints) in directory `d`: each tensor goes to a file,
-    the tensors at the indices `shared` are read back after the launch.
+    takes a pointer, (tensor, byte offset) for a pointer that far into a
+    tensor, ints) in directory `d`: each tensor goes to a file, the
+    tensors at the indices `shared` are read back after the launch.
     `count` is the entry's int argument; `resident` 0 runs the blocks
     one after another.  Returns (return code, {index: bytes}, stderr)."""
     import torch
     lines = []
     for k, v in enumerate(params):
+        v, offset = v if isinstance(v, tuple) else (v, 0)
         if torch.is_tensor(v):
             (d / f"p{k}").write_bytes(v.contiguous().cpu().numpy().tobytes())
-            lines.append(f"p p{k} {int(k in shared)}")
+            lines.append(f"o p{k} {int(k in shared)} {offset}" if offset
+                         else f"p p{k} {int(k in shared)}")
         else:
             lines.append(f"i {int(v)}")
     (d / "params.txt").write_text("\n".join(lines) + "\n")

@@ -7,6 +7,9 @@ Writes `av1dec_tpu_torch/testdata/`:
 - `bench_1080p_intra_lf.ivf` (BIG_LF): the same content and seed at
   cq-level LF_CQ, where libaom picks a loop-filter level in every frame
   (at cq-level 40 it picks 0), so the device deblock runs at 1080p;
+- `bench_1080p_intra_sres.ivf` (BIG_SRES): the same content and seed
+  with superres at denominator SRES_DENOM in every frame (coded
+  960 wide, upscaled to 1920), so the device superres runs at 1080p;
 - `bench_1080p_inter.ivf`: the 1920x1080 low-delay stream (1 key frame,
   7 inter frames; OBMC, warped motion, masked compound, inter-intra and
   global motion off), made exactly as `bench.py:ensure_inter_stream`
@@ -78,6 +81,10 @@ BIG = "bench_1080p_intra"
 # BIG at cq-level LF_CQ: every frame has a loop-filter level
 BIG_LF = "bench_1080p_intra_lf"
 LF_CQ = 55
+# BIG with superres (SUPERRES_FIXED) at denominator SRES_DENOM in every
+# frame: the device superres runs at 1080p
+BIG_SRES = "bench_1080p_intra_sres"
+SRES_DENOM = 16
 BIG_INTER = "bench_1080p_inter"
 BIG_HOST = "bench_1080p_host"
 HOST_FRAMES = 8  # frames of BIG_HOST: 1 key frame, then inter frames
@@ -251,9 +258,9 @@ def _encode_small(name, spec, path):
     aomffi.write_ivf(path, pkts, w, h)
 
 
-def _encode_1080p(path, cq=40):
+def _encode_1080p(path, cq=40, superres_denom=None):
     """Same content, encoder settings and seed as bench.ensure_stream (at
-    cq-level `cq`)."""
+    cq-level `cq`, with superres at `superres_denom` if given)."""
     import aomffi
     W, H, FRAMES = 1920, 1080, 8
     rng = np.random.default_rng(5)
@@ -261,7 +268,8 @@ def _encode_1080p(path, cq=40):
     enc = aomffi.AomEncoder(
         W, H, cpu_used=6, kf_max_dist=1, lag=0,
         options=[("cq-level", str(cq)), ("tile-columns", "1"),
-                 ("tile-rows", "1")], end_usage=3)
+                 ("tile-rows", "1")], end_usage=3,
+        superres_denom=superres_denom)
     pkts = []
     for i in range(FRAMES):
         y = (110 + 70 * np.sin(xx / 17.0 + i * 0.3) *
@@ -451,14 +459,16 @@ def main():
                           HOST_CASES + [GOP_CASE] + sorted(COMPOUND_CASES) +
                           [OCCLUSION_CASE])
     if not args.skip_1080p and not args.only:
-        names = names + [BIG, BIG_LF, BIG_INTER, BIG_HOST, BIG_HOST40,
-                         BIG_COMPOUND]
+        names = names + [BIG, BIG_LF, BIG_SRES, BIG_INTER, BIG_HOST,
+                         BIG_HOST40, BIG_COMPOUND]
     for name in names:
         path = os.path.join(OUT, name + ".ivf")
         if name == BIG:
             _encode_1080p(path)
         elif name == BIG_LF:
             _encode_1080p(path, LF_CQ)
+        elif name == BIG_SRES:
+            _encode_1080p(path, superres_denom=SRES_DENOM)
         elif name == BIG_INTER:
             _encode_1080p_inter(path)
         elif name == BIG_HOST:
@@ -495,7 +505,7 @@ def main():
             continue
         manifest[name] = {"frames": ref, "bytes": size}
         if name in (BIG_INTER, BIG_HOST, BIG_HOST40, BIG_COMPOUND) or \
-                name not in cases and name not in (BIG, BIG_LF):
+                name not in cases and name not in (BIG, BIG_LF, BIG_SRES):
             manifest[name]["inter"] = True
         if host:
             manifest[name]["host"] = True
