@@ -1,0 +1,11 @@
+"""host_prep_ms (ms/frame): the seconds of stage `host_prep` that
+`api.decode_stream_batched(timings=...)` reports, summed over the
+window's calls, a frame handed back.  None on an entry that reports no
+stages."""
+
+
+def read(run):
+    s = run.record.stages
+    if "host_prep" not in s or not run.frames:
+        return None
+    return 1e3 * s["host_prep"] / run.frames

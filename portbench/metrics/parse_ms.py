@@ -1,0 +1,11 @@
+"""parse_ms (ms/frame): the seconds of stage `parse` that
+`api.decode_stream_batched(timings=...)` reports, summed over the
+window's calls, a frame handed back.  None on an entry that reports no
+stages."""
+
+
+def read(run):
+    s = run.record.stages
+    if "parse" not in s or not run.frames:
+        return None
+    return 1e3 * s["parse"] / run.frames
