@@ -34,7 +34,6 @@ from __future__ import annotations
 import hashlib
 import io
 import json
-import time
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -43,7 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from av1dec_tpu_torch import resolve_device
+from av1dec_tpu_torch import resolve_device, tracing
 from av1dec_tpu_torch.bindings import NativeParser
 from av1dec_tpu_torch.ops.kernels import deblock as _deblock
 from av1dec_tpu_torch.ops.kernels import wavefront as _wavefront
@@ -51,7 +50,7 @@ from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
                                                     postfilter_batch,
                                                     prep_batch, scan_batch,
                                                     to_torch_inputs)
-from av1dec_tpu_torch.pipeline.recon import FrameRecon
+from av1dec_tpu_torch.pipeline.recon import run_host
 
 
 def display_md5(planes, bit_depth, width, height, subsampling):
@@ -112,6 +111,10 @@ class _Slot:
     dev_planes: Optional[list] = None
 
 
+# the spans of an InterPlan: a stats record's `inter_plan_ms`
+INTER_PLAN_SPANS = ("inter_plan", "inter_plan.refs", "inter_plan.lanes")
+
+
 class Decoder:
     """AV1 decoder: temporal units in, display-order frames out.
 
@@ -132,20 +135,33 @@ class Decoder:
         self._dpb: Dict[int, Optional[_Slot]] = {i: None for i in range(8)}
         self._shown = 0
         self.stats: List[dict] = []  # per-frame decode records
+        # the tracing unit of the next coded frame: its parse (and an
+        # earlier TU's that made no frame) is charged to it
+        self._id = tracing.new_id()
+        self._unit = tracing.Unit(self._id, 0)
 
     @property
     def seq(self):
         return self._parser.seq
 
     def decode(self, tu: bytes) -> List[OutputFrame]:
+        """The frames the temporal unit `tu` shows, in order.  Each coded
+        frame appends a record to `stats`: its header's facts, the recon
+        path, `ms` (the frame's decode, host clock), `inter_plan_ms`,
+        kernel launches, and from `tracing` its index `frame`, `spans_ms`
+        (self ms by span) and the copies to and from the card."""
         out: List[OutputFrame] = []
-        for hdr, plans in self._parser.parse_tu(tu, with_plans=True):
+        with tracing.unit(self._unit), tracing.span("parse"):
+            frames = self._parser.parse_tu(tu, with_plans=True)
+        for hdr, plans in frames:
+            unit = self._unit
             seq = self._parser.seq
             if hdr.get("show_existing_frame"):
                 slot = self._dpb[hdr["frame_to_show_map_idx"]]
                 if slot is None:
                     raise ValueError("show_existing_frame: empty slot")
-                out.append(self._emit(slot.planes, slot, hdr))
+                with tracing.unit(unit):
+                    out.append(self._emit(slot.planes, slot, hdr))
                 if slot.frame_type == 0:  # KEY re-show refreshes all slots
                     for i in range(8):
                         self._dpb[i] = slot
@@ -161,9 +177,30 @@ class Decoder:
                                     "width": slot.width,
                                     "height": slot.height,
                                     "dev_planes": slot.dev_planes}
-            t0 = time.monotonic()
-            scans0 = _wavefront.launches
-            dbl0 = _deblock.launches
+            with tracing.unit(unit):
+                record, planes, slot = self._decode_frame(seq, hdr, plans,
+                                                          refs, unit)
+                if hdr.get("show_frame") or self.config.output_invisible:
+                    out.append(self._emit(planes, slot, hdr))
+            record["spans_ms"] = unit.spans_ms()
+            record.update({k: unit.counts[k] for k in tracing.COPIES})
+            record["inter_blocks"] = {k[len("blocks."):]: unit.counts[k]
+                                      for k in tracing.BLOCKS}
+            self.stats.append(record)
+            self._unit = tracing.Unit(self._id, unit.frame + 1)
+        if self.config.max_frames:
+            room = self.config.max_frames - self._shown
+            out = out[:max(0, room)]
+        self._shown += len(out)
+        return out
+
+    def _decode_frame(self, seq, hdr, plans, refs, unit):
+        """One coded frame, on the device path or the host pixel path,
+        into the DPB.  Returns (its stats record, its planes, its DPB
+        slot)."""
+        scans0 = _wavefront.launches
+        dbl0 = _deblock.launches
+        with tracing.span("decode"):
             dr = DeviceRecon(seq, hdr, plans, config=self.config,
                              refs=refs)
             dev_keep = host_reason = None
@@ -178,56 +215,54 @@ class Decoder:
                     dev_keep = dr._final_dev
             else:
                 host_reason = dr.unsupported_reason()
-                planes = FrameRecon(seq, hdr, plans, refs=refs,
-                                    device=self.device).run()
+                planes = run_host(seq, hdr, plans, refs=refs,
+                                  device=self.device)
                 path = "host"
-            self.stats.append({
-                "frame_type": hdr["frame_type"],
-                "show": int(bool(hdr.get("show_frame"))),
-                "qindex": hdr["quant"]["base_q_idx"],
-                "width": hdr["frame_width"],
-                "height": hdr["frame_height"],
-                "intra": int(bool(hdr.get("frame_is_intra", 1))),
-                "cdef": int(bool((hdr.get("cdef") or {}).get("bits", 0) or
-                                 any((hdr.get("cdef") or {})
-                                     .get("y_pri", [0])))),
-                "superres": int(bool(hdr.get("use_superres"))),
-                "lr": int(any((hdr.get("lr") or {})
-                              .get("frame_restoration_type", [0, 0, 0]))),
-                "recon_path": path,
-                "host_reason": host_reason,
-                "ms": round((time.monotonic() - t0) * 1000, 2),
-                "inter_plan_ms": round(dr.inter_plan_s * 1000, 2),
-                # launches of the scan kernel (a card's device path: one
-                # per frame) and the levels with lanes its counters
-                # report complete
-                "scan_launches": _wavefront.launches - scans0,
-                "scan_levels": (_wavefront.levels_completed()
-                                if _wavefront.launches > scans0 else 0),
-                # launches of the deblock kernel (a card's device path:
-                # one per frame with a loop-filter level)
-                "deblock_launches": _deblock.launches - dbl0,
-            })
-            slot = _Slot(planes=planes,
-                         width=hdr["upscaled_width"],
-                         height=hdr["frame_height"],
-                         frame_type=hdr["frame_type"],
-                         grain=hdr.get("grain") or {},
-                         bit_depth=seq["bit_depth"],
-                         subsampling=(seq["subsampling_x"],
-                                      seq["subsampling_y"]),
-                         dev_planes=dev_keep)
-            for i in range(8):
-                if (hdr["refresh_frame_flags"] >> i) & 1:
-                    self._dpb[i] = slot
-            if hdr.get("show_frame") or self.config.output_invisible:
-                out.append(self._emit(planes, slot, hdr))
-        if self.config.max_frames:
-            room = self.config.max_frames - self._shown
-            out = out[:max(0, room)]
-        self._shown += len(out)
-        return out
+        ms = tracing.last_seconds() * 1000
+        cdef = hdr.get("cdef") or {}
+        record = {
+            "frame": unit.frame,
+            "frame_type": hdr["frame_type"],
+            "show": int(bool(hdr.get("show_frame"))),
+            "qindex": hdr["quant"]["base_q_idx"],
+            "width": hdr["frame_width"],
+            "height": hdr["frame_height"],
+            "intra": int(bool(hdr.get("frame_is_intra", 1))),
+            "cdef": int(bool(cdef.get("bits", 0) or
+                             any(cdef.get("y_pri", [0])))),
+            "superres": int(bool(hdr.get("use_superres"))),
+            "lr": int(any((hdr.get("lr") or {})
+                          .get("frame_restoration_type", [0, 0, 0]))),
+            "recon_path": path,
+            "host_reason": host_reason,
+            "ms": round(ms, 2),
+            "inter_plan_ms": round(unit.total(INTER_PLAN_SPANS) * 1000,
+                                   2),
+            # launches of the scan kernel (a card's device path: one
+            # per frame) and the levels with lanes its counters
+            # report complete
+            "scan_launches": _wavefront.launches - scans0,
+            "scan_levels": (_wavefront.levels_completed()
+                            if _wavefront.launches > scans0 else 0),
+            # launches of the deblock kernel (a card's device path:
+            # one per frame with a loop-filter level)
+            "deblock_launches": _deblock.launches - dbl0,
+        }
+        slot = _Slot(planes=planes,
+                     width=hdr["upscaled_width"],
+                     height=hdr["frame_height"],
+                     frame_type=hdr["frame_type"],
+                     grain=hdr.get("grain") or {},
+                     bit_depth=seq["bit_depth"],
+                     subsampling=(seq["subsampling_x"],
+                                  seq["subsampling_y"]),
+                     dev_planes=dev_keep)
+        for i in range(8):
+            if (hdr["refresh_frame_flags"] >> i) & 1:
+                self._dpb[i] = slot
+        return record, planes, slot
 
+    @tracing.traced("emit")
     def _emit(self, planes, slot, hdr) -> OutputFrame:
         grain = slot.grain if hdr.get("show_existing_frame") \
             else (hdr.get("grain") or {})
@@ -366,6 +401,23 @@ def decode_ivf(path: str, config=None, device="cuda") -> List[OutputFrame]:
 
 
 STAGES = ("parse", "host_path", "host_prep", "scan", "postfilter", "fetch")
+# the spans whose self times make each stage of `decode_stream_batched`
+STAGE_SPANS = {
+    "parse": ("parse", "schedule", "eligibility") + INTER_PLAN_SPANS,
+    "host_path": ("host", "host.walk", "host.residuals", "host.filter",
+                  "host.inter_pred"),
+    "host_prep": ("prep", "prep.residuals", "prep.rows",
+                  "prep.deblock_maps"),
+    "scan": ("upload", "upload.plan", "upload.mc", "dispatch.scan"),
+    "postfilter": ("dispatch", "dispatch.post_args"),
+    "fetch": ("fetch", "fetch.copy", "fetch.tail"),
+}
+
+
+def _prep_in(unit, drs):
+    """`prep_batch(drs)` with its spans in `unit` (on a worker thread)."""
+    with tracing.unit(unit):
+        return prep_batch(drs)
 
 
 def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
@@ -382,69 +434,75 @@ def decode_stream_batched(datas, device="cuda", batch=4, timings=None):
     maps) runs on a worker thread while the device works on batch k.
     Returns per-frame host plane lists (int64), in frame order.
 
+    Each batch is a `tracing.Unit` (the call's id, the batch's index),
+    which also takes the parse of the temporal units that start while
+    its frames are parsed, and the host pixel path's frames among them.
     `timings`: optional dict that receives the seconds of each stage of
-    STAGES; the device is then synchronised after the scan and after the
-    postfilter of every batch so that each stage's time is its own
-    (host prep is the worker's own time; `host_path` is the host pixel
-    path's frames, out of `parse`)."""
+    STAGES, its spans' self times (STAGE_SPANS) over the batches; the
+    device is then synchronised after the scan (inside `dispatch.scan`)
+    and after the postfilter (inside `dispatch`) of every batch so that
+    each stage's time is its own (host prep is the worker's own time;
+    `host_path` is the host pixel path's frames, out of `parse`)."""
     dev = resolve_device(device)
     sync = (torch.cuda.synchronize if dev.type == "cuda" and
             timings is not None else (lambda: None))
-    tm = dict.fromkeys(STAGES, 0.0)
-    t0 = time.perf_counter()
+    call = tracing.new_id()
+    units = []
+
+    def unit_of(k):
+        """The unit of the batch of device-path frame k."""
+        while len(units) <= k // batch:
+            units.append(tracing.Unit(call, len(units)))
+        return units[k // batch]
+
     parser = NativeParser()
     drs = []
     slots = []  # frame order: ("dev", index in drs) or ("host", planes)
     for d in datas:
-        for hdr, plans in parser.parse_tu(d, with_plans=True):
-            if hdr.get("show_existing_frame"):
-                raise NotImplementedError(
-                    "decode_stream_batched: show_existing_frame")
-            if not hdr.get("frame_is_intra", 1):
-                raise NotImplementedError(
-                    "decode_stream_batched decodes all-intra streams: "
-                    "the frames of a batch are independent, and an inter "
-                    "frame is not (decode it with Decoder)")
-            dr = DeviceRecon(parser.seq, hdr, plans)
-            if dr.supported():
-                slots.append(("dev", len(drs)))
-                drs.append(dr)
-            else:
-                t = time.perf_counter()
-                planes = FrameRecon(parser.seq, hdr, plans,
-                                    device=dev).run()
-                slots.append(("host", [np.asarray(p) for p in planes]))
-                tm["host_path"] += time.perf_counter() - t
+        with tracing.unit(unit_of(len(drs))):
+            with tracing.span("parse"):
+                frames = parser.parse_tu(d, with_plans=True)
+            for hdr, plans in frames:
+                if hdr.get("show_existing_frame"):
+                    raise NotImplementedError(
+                        "decode_stream_batched: show_existing_frame")
+                if not hdr.get("frame_is_intra", 1):
+                    raise NotImplementedError(
+                        "decode_stream_batched decodes all-intra streams: "
+                        "the frames of a batch are independent, and an "
+                        "inter frame is not (decode it with Decoder)")
+                dr = DeviceRecon(parser.seq, hdr, plans)
+                if dr.supported():
+                    slots.append(("dev", len(drs)))
+                    drs.append(dr)
+                else:
+                    planes = run_host(parser.seq, hdr, plans, device=dev)
+                    slots.append(("host", [np.asarray(p) for p in planes]))
     parser.close()
-    tm["parse"] = time.perf_counter() - t0 - tm["host_path"]
-
-    def timed_prep(ch):
-        t = time.perf_counter()
-        prep = prep_batch(ch)
-        return prep, time.perf_counter() - t
 
     chunks = [drs[i:i + batch] for i in range(0, len(drs), batch)]
     dev_out = []
     with ThreadPoolExecutor(1) as ex:
-        fut = ex.submit(timed_prep, chunks[0]) if chunks else None
+        fut = ex.submit(_prep_in, unit_of(0), chunks[0]) if chunks else None
         for i, ch in enumerate(chunks):
-            prep, t_prep = fut.result()
-            tm["host_prep"] += t_prep
+            prep = fut.result()
             if i + 1 < len(chunks):
-                fut = ex.submit(timed_prep, chunks[i + 1])
-            t = time.perf_counter()
-            inputs = to_torch_inputs(prep, dev)
-            frame = scan_batch(inputs)
-            sync()
-            tm["scan"] += time.perf_counter() - t
-            t = time.perf_counter()
-            dev_out += postfilter_batch(ch, inputs, frame)
-            sync()
-            tm["postfilter"] += time.perf_counter() - t
-    t = time.perf_counter()
-    fetched = [dr.fetch(planes) for dr, planes in zip(drs, dev_out)]
+                fut = ex.submit(_prep_in, unit_of((i + 1) * batch),
+                                chunks[i + 1])
+            with tracing.unit(unit_of(i * batch)):
+                inputs = to_torch_inputs(prep, dev)
+                with tracing.span("dispatch"):
+                    with tracing.span("dispatch.scan"):
+                        frame = scan_batch(inputs)
+                        sync()
+                    dev_out += postfilter_batch(ch, inputs, frame)
+                    sync()
+    fetched = []
+    for k, (dr, planes) in enumerate(zip(drs, dev_out)):
+        with tracing.unit(unit_of(k)):
+            fetched.append(dr.fetch(planes))
     out = [fetched[v] if kind == "dev" else v for kind, v in slots]
-    tm["fetch"] = time.perf_counter() - t
     if timings is not None:
-        timings.update(tm)
+        timings.update({k: sum(u.total(STAGE_SPANS[k]) for u in units)
+                        for k in STAGES})
     return out

@@ -41,6 +41,7 @@ import functools
 import numpy as np
 import torch
 
+from av1dec_tpu_torch import tracing
 from av1dec_tpu_torch.ops import inter_tables as T_
 from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, no_device_sync,
                                                      param_list, param_names)
@@ -130,7 +131,7 @@ def _mc_bucket(frame, n, ref_flat, rows, T, comp, bd, ftab, ar):
 @functools.lru_cache(maxsize=None)
 def _consts(device):
     """(filter table, index ramp) on `device`, uploaded once."""
-    return (torch.as_tensor(_FTAB, device=device),
+    return (tracing.to_device(_FTAB, device),
             torch.arange(128 + 7, dtype=torch.int32, device=device))
 
 

@@ -50,6 +50,7 @@ import functools
 import numpy as np
 import torch
 
+from av1dec_tpu_torch import tracing
 from av1dec_tpu_torch.ops.kernels.cuda_build import (launch, no_device_sync,
                                                      param_list)
 from av1dec_tpu_torch.ops.spec import intra
@@ -193,9 +194,9 @@ def _consts(device):
     i32 = dict(dtype=torch.int32, device=device)
     return {
         "ar": torch.arange(4 * 64 + 3, **i32),
-        "kern": torch.as_tensor(_KERN, **i32).contiguous(),
-        "sm": torch.as_tensor(_SM, **i32).contiguous(),
-        "fi_taps": torch.as_tensor(_FI_TAPS, **i32).contiguous(),
+        "kern": tracing.to_device(_KERN, **i32).contiguous(),
+        "sm": tracing.to_device(_SM, **i32).contiguous(),
+        "fi_taps": tracing.to_device(_FI_TAPS, **i32).contiguous(),
     }
 
 
@@ -691,5 +692,5 @@ def levels_completed(scan=None):
     last scan's, `last_scan`): every level, once the launch ran to its
     end.  Synchronises with the card."""
     counters, live = last_scan if scan is None else scan
-    done = counters.view(-1, COUNTER_STRIDE)[1:, 0].cpu().numpy()
+    done = tracing.to_host(counters.view(-1, COUNTER_STRIDE)[1:, 0]).numpy()
     return int((done == live).sum())

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from av1dec_tpu_torch import tracing
 from av1dec_tpu_torch.ops.kernels.mc import MC_FIELDS, _MF
 from av1dec_tpu_torch.ops.spec import inter as I
 
@@ -156,7 +157,7 @@ def pack_ref_flat(pieces, device):
     would after reading them."""
     flat = []
     for p in pieces:
-        t = torch.as_tensor(p, device=device).reshape(-1)
+        t = tracing.to_device(p, device).reshape(-1)
         flat.append(t if t.dtype == torch.uint8 else t.to(torch.int32))
     return torch.cat(flat)
 
@@ -172,7 +173,7 @@ def upload_lanes(lanes, bd, device, base_off=0):
         return ((), bd), {}
     rows = np.concatenate([lanes[k] for k in keys]).astype(np.int32)
     rows[:, _MF["base"]] += base_off
-    dev = torch.as_tensor(rows, device=device)
+    dev = tracing.to_device(rows, device)
     out, buckets, s = {}, [], 0
     for k in keys:
         n = len(lanes[k])
@@ -188,9 +189,11 @@ class InterPlan:
     def __init__(self, seq, hdr, plans, refs, sch):
         self.sch = sch
         self.bd = sch.bd
-        self.ref_np, self._layout = self._pack_refs(seq, hdr, refs,
-                                                    plans, sch)
-        self.lanes = self._build_lanes(seq, hdr, plans, sch)
+        with tracing.span("inter_plan.refs"):
+            self.ref_np, self._layout = self._pack_refs(seq, hdr, refs,
+                                                        plans, sch)
+        with tracing.span("inter_plan.lanes"):
+            self.lanes = self._build_lanes(seq, hdr, plans, sch)
 
     # -- packed reference buffer ------------------------------------------
     def _pack_refs(self, seq, hdr, refs, plans, sch):

@@ -32,13 +32,12 @@ CDEF runs in column shards over the devices of the process
 from __future__ import annotations
 
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from av1dec_tpu_torch import resolve_device
+from av1dec_tpu_torch import resolve_device, tracing
 from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
 from av1dec_tpu_torch.ops.kernels.deblock import deblock_planes
 from av1dec_tpu_torch.ops.kernels.lr import lr_wiener_planes
@@ -98,7 +97,7 @@ def _postfilter_chain(frame, base, dbl_maps, gates, sr_args, lr_args, cfg):
 
 
 def _i32(a, device):
-    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+    return tracing.to_device(np.ascontiguousarray(a, np.int32), device)
 
 
 class DeviceRecon:
@@ -123,20 +122,20 @@ class DeviceRecon:
         self._final_dev = None
         self._sr_on_device = False
         self._lr_on_device = False
-        self.sch = wf.build_schedule(seq, hdr, plans,
-                                     allow_inter=refs is not None)
+        with tracing.span("schedule"):
+            self.sch = wf.build_schedule(seq, hdr, plans,
+                                         allow_inter=refs is not None)
         self.seq, self.hdr, self.plans = seq, hdr, plans
         self._inter_plan = None
         self._inter_reason = None
-        self.inter_plan_s = 0.0  # host seconds of the InterPlan
         if self.sch is not None and self.sch.has_inter:
-            self._inter_reason = di.ineligible_reason(
-                hdr, plans, refs, self.sch.num_planes)
+            with tracing.span("eligibility"):
+                self._inter_reason = di.ineligible_reason(
+                    hdr, plans, refs, self.sch.num_planes)
             if self._inter_reason is None:
-                t0 = time.perf_counter()
-                self._inter_plan = di.InterPlan(seq, hdr, plans, refs,
-                                                self.sch)
-                self.inter_plan_s = time.perf_counter() - t0
+                with tracing.span("inter_plan"):
+                    self._inter_plan = di.InterPlan(seq, hdr, plans, refs,
+                                                    self.sch)
             else:
                 self.sch = None  # exotic inter tools: not on this path
         if self.sch is not None:
@@ -240,21 +239,27 @@ class DeviceRecon:
     # -- postfilter --------------------------------------------------------
     def _post_device(self, frame, base, maps):
         """Postfilter of the frame at `base` within the flat buffer.
-        Returns (final planes, pre-CDEF planes or None)."""
+        Returns (final planes, pre-CDEF planes or None).  Its host half
+        (gates, deblock maps, superres and Wiener arguments, built and
+        uploaded) is the span `dispatch.post_args`."""
         sch = self.sch
         dev = frame.device
-        gates = cdef_dev.compute_gates(self.seq, self.hdr, self.plans,
-                                       sch.num_planes, sch.bd)
-        dbl_dev = ()
-        sharp = 0
-        if maps is not None:
-            dbl_dev = tuple(
-                ((_i32(fv, dev), _i32(lv, dev)),
-                 (_i32(fh, dev), _i32(lh, dev)))
-                for (fv, lv), (fh, lh) in maps)
-            sharp = int(self.hdr["lf"]["sharpness"])
-        if gates is not None and \
-                (getattr(self.config, "space_shards", 0) or 0) > 1:
+        with tracing.span("dispatch.post_args"):
+            gates = cdef_dev.compute_gates(self.seq, self.hdr, self.plans,
+                                           sch.num_planes, sch.bd)
+            dbl_dev = ()
+            sharp = 0
+            if maps is not None:
+                dbl_dev = tuple(
+                    ((_i32(fv, dev), _i32(lv, dev)),
+                     (_i32(fh, dev), _i32(lh, dev)))
+                    for (fv, lv), (fh, lh) in maps)
+                sharp = int(self.hdr["lf"]["sharpness"])
+            sharded = gates is not None and \
+                (getattr(self.config, "space_shards", 0) or 0) > 1
+            if not sharded:
+                args = self._chain_args(dev, gates, maps, sharp)
+        if sharded:
             # column-sharded CDEF (unfused): slice -> deblock -> pre-CDEF
             # copy -> CDEF; superres and LR finish on the host
             # (finish_host), as in the JAX package
@@ -272,6 +277,13 @@ class DeviceRecon:
                 if self._needs_pre_cdef() else None
             planes = self._cdef_device(planes, gates)
             return [p.to(odt) for p in planes], pre
+        final, pre = _postfilter_chain(frame, base, dbl_dev, *args)
+        return list(final), (list(pre) if pre else None)
+
+    def _chain_args(self, dev, gates, maps, sharp):
+        """(gates, superres args, Wiener args, cfg) of
+        `_postfilter_chain`, uploaded to `dev`."""
+        sch = self.sch
         gates_dev = ()
         damping = 0
         subx_c = suby_c = 0
@@ -296,15 +308,13 @@ class DeviceRecon:
             lr_dev = tuple(
                 None if a is None else
                 tuple(_i32(x, dev) for x in a[:6]) +
-                (torch.as_tensor(a[6], device=dev),)
+                (tracing.to_device(a[6], dev),)
                 for a in lr_args)
             self._lr_on_device = True
         cfg = (geom, sch.bd, sharp, int(damping), subx_c, suby_c,
                maps is not None, gates is not None, has_sr, has_lr,
                self._needs_pre_cdef())
-        final, pre = _postfilter_chain(frame, base, dbl_dev, gates_dev,
-                                       sr_dev, lr_dev, cfg)
-        return list(final), (list(pre) if pre else None)
+        return gates_dev, sr_dev, lr_dev, cfg
 
     def _lr_wiener_args(self):
         """Host-built per-plane args for the device Wiener LR pass, or
@@ -451,14 +461,18 @@ class DeviceRecon:
         final = dispatch_batch([self], inputs)[0]
         return self.fetch(final)
 
+    @tracing.traced("fetch")
     def fetch(self, final):
         """Device planes -> host int64 planes, with the host tail."""
-        out = [p.cpu().numpy().astype(np.int64) for p in final]
-        pre = None
-        if self._pre_cdef_dev is not None:
-            pre = [p.cpu().numpy().astype(np.int64)
-                   for p in self._pre_cdef_dev]
-        return self.finish_host(out, pre)
+        with tracing.span("fetch.copy"):
+            out = [tracing.to_host(p).numpy().astype(np.int64)
+                   for p in final]
+            pre = None
+            if self._pre_cdef_dev is not None:
+                pre = [tracing.to_host(p).numpy().astype(np.int64)
+                       for p in self._pre_cdef_dev]
+        with tracing.span("fetch.tail"):
+            return self.finish_host(out, pre)
 
     def finish_host(self, planes, pre_cdef):
         """Host tail of the filter chain: superres upscale + loop
@@ -477,6 +491,7 @@ class DeviceRecon:
         return planes
 
 
+@tracing.traced("prep")
 def prep_batch(drs):
     """Host-side half of the batched device decode: residual packing,
     lane assembly, palette tensors, deblock edge maps and the inter
@@ -491,52 +506,54 @@ def prep_batch(drs):
 
     # packed residuals at a uniform per-frame stride (threaded: the
     # itx lanes are large numpy ops that release the GIL)
-    with ThreadPoolExecutor(2) as ex:
-        bufs = list(ex.map(lambda dr: dr._residuals_flat_np(), drs))
-    rf = max(1, max(len(b) for b in bufs))
-    res_np = np.zeros(K * rf, bufs[0].dtype)
-    for f, b in enumerate(bufs):
-        res_np[f * rf: f * rf + len(b)] = b
+    with tracing.span("prep.residuals"):
+        with ThreadPoolExecutor(2) as ex:
+            bufs = list(ex.map(lambda dr: dr._residuals_flat_np(), drs))
+        rf = max(1, max(len(b) for b in bufs))
+        res_np = np.zeros(K * rf, bufs[0].dtype)
+        for f, b in enumerate(bufs):
+            res_np[f * rf: f * rf + len(b)] = b
 
-    pal_np = {t: np.concatenate(
-        [dr._palette_tensor(t, Pcap[t]) for dr in drs], axis=0)
-        for t in BUCKETS}
-
-    L = max(dr.sch.n_levels for dr in drs)
-    buckets = []
-    inputs_np = {}
-    for t in BUCKETS:
-        rows_all, lv_all = [], []
-        for f, dr in enumerate(drs):
-            arr, lv = dr._bucket_rows(t)
-            arr = arr.copy()
-            arr[:, _DEV_F["base"]] += f * flat
-            arr[:, _DEV_F["lbase"]] += f * flat
-            ridx = arr[:, _DEV_F["res_idx"]]
-            arr[:, _DEV_F["res_idx"]] = np.where(
-                ridx >= 0, ridx + f * rf, -1)
-            pidx = arr[:, _DEV_F["pal_idx"]]
-            arr[:, _DEV_F["pal_idx"]] = np.where(
-                pidx >= 0, pidx + f * Pcap[t], -1)
-            rows_all.append(arr)
-            lv_all.append(lv)
-        arr = np.concatenate(rows_all, axis=0)
-        lv = np.concatenate(lv_all)
-        order = np.argsort(lv, kind="stable")
-        arr, lv = arr[order], lv[order]
-        starts = np.zeros(L, np.int32)
-        counts = np.zeros(L, np.int32)
-        if len(lv):
-            uniq, s_idx, cnt = np.unique(lv, return_index=True,
-                                         return_counts=True)
-            starts[uniq - 1] = s_idx
-            counts[uniq - 1] = cnt
-        buckets.append((t, BWIN[t]))
-        inputs_np[t] = (arr, starts, counts)
+    with tracing.span("prep.rows"):
+        pal_np = {t: np.concatenate(
+            [dr._palette_tensor(t, Pcap[t]) for dr in drs], axis=0)
+            for t in BUCKETS}
+        L = max(dr.sch.n_levels for dr in drs)
+        buckets = []
+        inputs_np = {}
+        for t in BUCKETS:
+            rows_all, lv_all = [], []
+            for f, dr in enumerate(drs):
+                arr, lv = dr._bucket_rows(t)
+                arr = arr.copy()
+                arr[:, _DEV_F["base"]] += f * flat
+                arr[:, _DEV_F["lbase"]] += f * flat
+                ridx = arr[:, _DEV_F["res_idx"]]
+                arr[:, _DEV_F["res_idx"]] = np.where(
+                    ridx >= 0, ridx + f * rf, -1)
+                pidx = arr[:, _DEV_F["pal_idx"]]
+                arr[:, _DEV_F["pal_idx"]] = np.where(
+                    pidx >= 0, pidx + f * Pcap[t], -1)
+                rows_all.append(arr)
+                lv_all.append(lv)
+            arr = np.concatenate(rows_all, axis=0)
+            lv = np.concatenate(lv_all)
+            order = np.argsort(lv, kind="stable")
+            arr, lv = arr[order], lv[order]
+            starts = np.zeros(L, np.int32)
+            counts = np.zeros(L, np.int32)
+            if len(lv):
+                uniq, s_idx, cnt = np.unique(lv, return_index=True,
+                                             return_counts=True)
+                starts[uniq - 1] = s_idx
+                counts[uniq - 1] = cnt
+            buckets.append((t, BWIN[t]))
+            inputs_np[t] = (arr, starts, counts)
 
     from av1dec_tpu_torch.ops.spec.deblock import build_deblock_maps
-    dbl = [build_deblock_maps(dr.seq, dr.hdr, dr.plans,
-                              dr.sch.num_planes) for dr in drs]
+    with tracing.span("prep.deblock_maps"):
+        dbl = [build_deblock_maps(dr.seq, dr.hdr, dr.plans,
+                                  dr.sch.num_planes) for dr in drs]
     mc = [(f, dr._inter_plan.lanes, dr._inter_plan.ref_np)
           for f, dr in enumerate(drs) if dr._inter_plan is not None]
     return {
@@ -548,6 +565,7 @@ def prep_batch(drs):
     }
 
 
+@tracing.traced("upload")
 def to_torch_inputs(prep, device):
     """Upload a `prep_batch` dict (this package's or the JAX package's:
     the keys and layouts are the same; "mc" entries may hold either
@@ -561,19 +579,23 @@ def to_torch_inputs(prep, device):
     dev = torch.device(device)
     ts = [t for t, _ in prep["buckets"]]
     inputs = prep["inputs_np"]
-    windows = plan_windows({t: inputs[t][0] for t in ts},
-                           {t: inputs[t][1] for t in ts},
-                           {t: inputs[t][2] for t in ts}, prep["buckets"])
-    table, level_lanes, tickets = plan_levels(
-        {t: inputs[t][1] for t in ts}, {t: inputs[t][2] for t in ts}, ts)
+    with tracing.span("upload.plan"):
+        windows = plan_windows({t: inputs[t][0] for t in ts},
+                               {t: inputs[t][1] for t in ts},
+                               {t: inputs[t][2] for t in ts},
+                               prep["buckets"])
+        table, level_lanes, tickets = plan_levels(
+            {t: inputs[t][1] for t in ts}, {t: inputs[t][2] for t in ts},
+            ts)
     bd = prep["config"][1]
     mc = []
-    for f, lanes, pieces in prep.get("mc", ()):
-        cfg, rows = di.upload_lanes(lanes, bd, dev, f * prep["flat"])
-        mc.append((di.pack_ref_flat(pieces, dev), rows, cfg))
+    with tracing.span("upload.mc"):
+        for f, lanes, pieces in prep.get("mc", ()):
+            cfg, rows = di.upload_lanes(lanes, bd, dev, f * prep["flat"])
+            mc.append((di.pack_ref_flat(pieces, dev), rows, cfg))
     return {
         "n": prep["K"] * prep["flat"], "flat": prep["flat"],
-        "res": torch.as_tensor(prep["res_np"], device=dev),
+        "res": tracing.to_device(prep["res_np"], dev),
         "pal": {t: _i32(a, dev) for t, a in prep["pal_np"].items()},
         "packed": {t: _i32(inputs[t][0], dev) for t in ts},
         "windows": windows,
@@ -616,5 +638,9 @@ def postfilter_batch(drs, inputs, frame):
 def dispatch_batch(drs, inputs):
     """Device half: the batched wavefront scan + per-frame postfilter.
     `inputs` from `to_torch_inputs`.  Returns a list (per frame) of
-    device plane lists (asynchronous)."""
-    return postfilter_batch(drs, inputs, scan_batch(inputs))
+    device plane lists (asynchronous).  Span `dispatch`, the scan's
+    launches `dispatch.scan`."""
+    with tracing.span("dispatch"):
+        with tracing.span("dispatch.scan"):
+            frame = scan_batch(inputs)
+        return postfilter_batch(drs, inputs, frame)

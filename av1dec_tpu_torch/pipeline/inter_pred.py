@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from av1dec_tpu_torch import tracing
 from av1dec_tpu_torch.ops.spec import inter as I
 
 BLOCK_W4 = [1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32,
@@ -108,6 +109,7 @@ class InterPredictor:
                                   self.frame_w, self.frame_h, ssx, ssy)
 
     # -- main entry --------------------------------------------------------
+    @tracing.traced("host.inter_pred")
     def predict_block(self, by, bx):
         r = self.r
         g = r.g
@@ -135,6 +137,7 @@ class InterPredictor:
         warp_params = None
         warp_shear = None
         use_warp = False
+        kind = "blocks.obmc" if motion_mode == 1 else "blocks.simple"
         if not intrabc and min(4 * bw4, 4 * bh4) >= 8:
             if motion_mode == 2:  # WARPED_CAUSAL
                 wp = r.warp_for_block(by, bx)
@@ -144,6 +147,7 @@ class InterPredictor:
                         warp_params = np.asarray(wp["params"], np.int64)
                         warp_shear = shear
                         use_warp = True
+                        kind = "blocks.local_warp"
                 if not use_warp and mode in (GLOBALMV, GLOBAL_GLOBALMV) \
                         and self.gm_type[ref0] > 1 and not self._scaled(ref0):
                     # local warp invalid -> global warp fallback
@@ -152,6 +156,7 @@ class InterPredictor:
                         warp_params = self.gm_params[ref0]
                         warp_shear = shear
                         use_warp = True
+                        kind = "blocks.global_warp"
             elif mode in (GLOBALMV, GLOBAL_GLOBALMV) and \
                     self.gm_type[ref0] > 1 and not self._scaled(ref0):
                 shear = self._gm_shear_params(ref0)
@@ -159,6 +164,8 @@ class InterPredictor:
                     warp_params = self.gm_params[ref0]
                     warp_shear = shear
                     use_warp = True
+                    kind = "blocks.global_warp"
+        tracing.count(kind)
 
         n_planes = r.num_planes if has_chroma else 1
         diff_mask = None

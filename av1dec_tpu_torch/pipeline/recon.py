@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from av1dec_tpu_torch import resolve_device
+from av1dec_tpu_torch import resolve_device, tracing
 from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
 from av1dec_tpu_torch.ops.kernels.itx import (pack_buckets,
                                               residuals_packed)
@@ -66,14 +66,26 @@ def residuals_device(buckets, bd, device):
     launch on a card) and one fetch.  Returns a list of int64 [B, h, w]
     arrays."""
     buf, spans, words = pack_residuals(buckets, bd)
-    host = residuals_packed(torch.as_tensor(buf, device=device), spans,
-                            words, bd).cpu().numpy()
+    host = tracing.to_host(residuals_packed(
+        tracing.to_device(buf, device), spans, words, bd)).numpy()
     res = []
     for tsz, _, _, B, _, o0 in spans:
         w, h = TX_DIMS[tsz]
         res.append(host[o0:o0 + B * w * h].reshape(B, h, w)
                    .astype(np.int64))
     return res
+
+
+def run_host(seq, hdr, plans, refs=None, device="cuda"):
+    """`FrameRecon(...).run()`: the frame's planes on the host pixel
+    path, in span `host` and, for `run`, `host.walk`.  The block walk is
+    `host.walk`'s self time: `run`, the reference's copy, is kept as it
+    is, so its residuals (`host.residuals`) and filters (`host.filter`)
+    are spans inside `host.walk`."""
+    with tracing.span("host"):
+        fr = FrameRecon(seq, hdr, plans, refs=refs, device=device)
+        with tracing.span("host.walk"):
+            return fr.run()
 
 
 class FrameRecon:
@@ -167,6 +179,7 @@ class FrameRecon:
         return int(above_smooth or left_smooth)
 
     # -- main -------------------------------------------------------------
+    @tracing.traced("host.residuals")
     def _precompute_residuals(self):
         """Batch dequant + inverse transform for all coded tx blocks,
         bucketed by (tx_size, tx_type): the residual path has no
@@ -336,6 +349,7 @@ class FrameRecon:
         self._postfilter()
         return self.planes
 
+    @tracing.traced("host.filter")
     def _postfilter(self):
         """In-loop filter chain: deblock -> cdef (device) -> superres ->
         lr, when present. [SPEC §7.14-7.17]"""
@@ -371,11 +385,12 @@ class FrameRecon:
         *strengths, damping, subx, suby = gates
         dev = self.device
         outs = cdef_dev.cdef_frame(
-            tuple(torch.as_tensor(np.ascontiguousarray(p, np.int32),
-                                  device=dev) for p in self.planes),
-            *(torch.as_tensor(s, device=dev) for s in strengths),
+            tuple(tracing.to_device(np.ascontiguousarray(p, np.int32), dev)
+                  for p in self.planes),
+            *(tracing.to_device(s, dev) for s in strengths),
             self.bd, damping, subx, suby)
-        host = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
+        host = tracing.to_host(
+            torch.cat([o.reshape(-1) for o in outs])).numpy()
         off = 0
         for p in self.planes:
             p[...] = host[off: off + p.size].reshape(p.shape)

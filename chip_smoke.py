@@ -1229,24 +1229,24 @@ def device_stream(manifest, name, dev, label):
     launches of the checked pass and its `Launches` block."""
     from av1dec_tpu_torch import api
     from av1dec_tpu_torch.ops.kernels import cdef
+    from av1dec_tpu_torch.pipeline.recon import FrameRecon
     datas = read_tus(name)
     want = manifest[name]["frames"]
     n_cdef = cdef_frames(datas)
     host = []
-    real_host = api.FrameRecon
+    real_run = FrameRecon.run
 
-    class Host(real_host):
-        def run(self):
-            host.append(1)
-            return super().run()
+    def run(self):
+        host.append(1)
+        return real_run(self)
     cdef.launches = cdef.frame_launches = 0
-    api.FrameRecon = Host
+    FrameRecon.run = run
     t0 = time.perf_counter()
     try:
         with Launches(name) as scans:
             out = api.decode_stream_batched(datas, device=dev, batch=4)
     finally:
-        api.FrameRecon = real_host
+        FrameRecon.run = real_run
     t_first = time.perf_counter() - t0
     launches = cdef.frame_launches
     check_launches(cdef, n_cdef, name)
