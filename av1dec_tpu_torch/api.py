@@ -149,7 +149,9 @@ class Decoder:
         frame appends a record to `stats`: its header's facts, the recon
         path, `ms` (the frame's decode, host clock), `inter_plan_ms`,
         kernel launches, and from `tracing` its index `frame`, `spans_ms`
-        (self ms by span) and the copies to and from the card."""
+        (self ms by span), the copies to and from the card, the host
+        path's `inter_blocks` by motion kind and the device path's
+        `inter_lanes` (MC lane `rows`, sub-8x8 chroma `pieces`)."""
         out: List[OutputFrame] = []
         with tracing.unit(self._unit), tracing.span("parse"):
             frames = self._parser.parse_tu(tu, with_plans=True)
@@ -186,6 +188,8 @@ class Decoder:
             record.update({k: unit.counts[k] for k in tracing.COPIES})
             record["inter_blocks"] = {k[len("blocks."):]: unit.counts[k]
                                       for k in tracing.BLOCKS}
+            record["inter_lanes"] = {k[len("lanes."):]: unit.counts[k]
+                                     for k in tracing.LANES}
             self.stats.append(record)
             self._unit = tracing.Unit(self._id, unit.frame + 1)
         if self.config.max_frames:

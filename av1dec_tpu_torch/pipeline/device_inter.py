@@ -14,14 +14,16 @@ distance-weighted compound blocks take two-list lanes (the MC pass
 blends them in-lane); the distance weights are libaom's
 (`ops/spec/inter.dist_weights`), which the reference's differ from.
 
-`frame_eligible`, `_pack_refs`, `_list_params` and `_build_lanes` are
-the reference's.  What differs: the reference's `InterPlan.ref_flat`
-and `mc_config_and_lanes` become the functions `pack_ref_flat` and
-`upload_lanes`, which take an explicit torch device and either
-package's lanes and pieces (so `device_recon.to_torch_inputs` uploads
-the JAX package's as well), and the JAX version's power-of-two lane
-capacities (`_MC_CAPS`), which only keep its jit keys stable, are left
-out: eager torch runs exact lane counts.
+`frame_eligible` and `_pack_refs` are the reference's.  `_build_lanes`
+gives the reference's rows, but builds them for the whole frame with
+array operations where the reference visits each block and plane, and
+`_list_params` takes columns of lanes.  Also different: the reference's
+`InterPlan.ref_flat` and `mc_config_and_lanes` become the functions
+`pack_ref_flat` and `upload_lanes`, which take an explicit torch device
+and either package's lanes and pieces (so `device_recon.to_torch_inputs`
+uploads the JAX package's as well), and the JAX version's power-of-two
+lane capacities (`_MC_CAPS`), which only keep its jit keys stable, are
+left out: eager torch runs exact lane counts.
 """
 from __future__ import annotations
 
@@ -41,14 +43,19 @@ GLOBALMV = 15
 GLOBAL_GLOBALMV = 23
 
 MC_BUCKETS = (4, 8, 16, 32, 64, 128)
+_W4 = np.asarray(BLOCK_W4)
+_H4 = np.asarray(BLOCK_H4)
+_REFS = 8  # reference frame numbers, INTRA_FRAME included
+# I.filter_index as a table: [interp filter, dimension <= 4]
+_FILTER_INDEX = np.asarray([[I.filter_index(f, 8), I.filter_index(f, 4)]
+                            for f in range(16)])
 
 
 def _bucket_for(w, h):
-    m = max(w, h)
-    for t in MC_BUCKETS:
-        if m <= t:
-            return t
-    return 128
+    """The side of the smallest MC bucket that holds a w x h unit, the
+    largest for a larger one (w and h may be arrays)."""
+    i = np.searchsorted(MC_BUCKETS, np.maximum(w, h))
+    return np.asarray(MC_BUCKETS)[np.minimum(i, len(MC_BUCKETS) - 1)]
 
 
 def frame_eligible(hdr, plans, refs, num_planes):
@@ -233,124 +240,144 @@ class InterPlan:
     # -- lane schedule ----------------------------------------------------
     def _list_params(self, plane, px, py, pw, ph, mv_row, mv_col, ref,
                      interp, ssx, ssy):
-        rb, rs, lastx, lasty = self._layout[(ref, plane)]
+        """One reference list's fields (rb, rs, lx, ly, cx, cy, hf, vf)
+        of lanes given as int64 columns: int64 [n, 8]."""
+        lay = np.zeros((_REFS, self.sch.num_planes, 4), np.int64)
+        have = np.zeros(lay.shape[:2], bool)
+        for (r, pl), v in self._layout.items():
+            lay[r, pl] = v
+            have[r, pl] = True
+        known = (ref >= 0) & (ref < _REFS)
+        ref = np.where(known, ref, 0)
+        if not (known & have[ref, plane]).all():
+            raise KeyError("a lane's reference has no packed plane")
         sx, sy, _, _ = I.mv_scaling(px, py, mv_row, mv_col, ssx, ssy,
                                     1 << 14, 1 << 14)
-        cx = (sx >> 10) - 3
-        cy = (sy >> 10) - 3
-        hf = I.filter_index((interp >> 4) & 15, pw) * 16 + ((sx >> 6) & 15)
-        vf = I.filter_index(interp & 15, ph) * 16 + ((sy >> 6) & 15)
-        return (rb, rs, lastx, lasty, cx, cy, hf, vf)
+        hf = _FILTER_INDEX[(interp >> 4) & 15, (pw <= 4).astype(np.int64)] \
+            * 16 + ((sx >> 6) & 15)
+        vf = _FILTER_INDEX[interp & 15, (ph <= 4).astype(np.int64)] * 16 + \
+            ((sy >> 6) & 15)
+        return np.column_stack((lay[ref, plane], (sx >> 10) - 3,
+                                (sy >> 10) - 3, hf, vf))
 
     def _build_lanes(self, seq, hdr, plans, sch):
+        """{(T, comp): int64 [N, len(MC_FIELDS)]}: a row per prediction
+        unit (a block's plane, or a piece of a sub-8x8 block's chroma
+        [SPEC §7.11.1]), in block raster order, then plane, then piece,
+        built for all of the frame's inter blocks at once.  List 1's
+        fields and the weights of a single-reference lane are 0."""
         g = plans.grid
         mi_rows, mi_cols = plans.mi_rows, plans.mi_cols
-        inter = np.asarray(g("is_inter")) != 0
-        by_g = np.asarray(g("by"))
-        bx_g = np.asarray(g("bx"))
-        blocks = np.unique((by_g.astype(np.int64) * mi_cols + bx_g)
-                           [inter])
-        num_planes = sch.num_planes
+        # each inter block's top-left: the inter mi whose (by, bx) is
+        # its own position, in raster order
+        own = (np.asarray(g("is_inter")) != 0) & \
+            (np.asarray(g("by")) == np.arange(mi_rows)[:, None]) & \
+            (np.asarray(g("bx")) == np.arange(mi_cols))
+        by, bx = np.nonzero(own)
+        bsize = np.asarray(g("bsize"))[by, bx]
+        bw4, bh4 = _W4[bsize], _H4[bsize]
         sub_x, sub_y = sch.sub_x, sch.sub_y
-        r0 = 5 if sch.bd == 12 else 3
-        post = 14 - r0 - 7
+        # prediction units (block, plane) in block order: luma of every
+        # block, chroma of the blocks that carry it
+        units = np.ones((len(by), sch.num_planes), bool)
+        units[:, 1:] = ((((by & 1) == 1) | ((bh4 & 1) == 0) | (not sub_y)) &
+                        (((bx & 1) == 1) | ((bw4 & 1) == 0) | (not sub_x))
+                        )[:, None]
+        blk, plane = np.nonzero(units)
+        uy, ux, w4, h4 = by[blk], bx[blk], bw4[blk], bh4[blk]
+        ssx = np.where(plane > 0, sub_x, 0)
+        ssy = np.where(plane > 0, sub_y, 0)
+        row0 = np.where((ssy > 0) & (h4 == 1), uy & ~1, uy)
+        col0 = np.where((ssx > 0) & (w4 == 1), ux & ~1, ux)
+        # a chroma unit moved up or left is cut into one piece per
+        # covering mi, each from that mi's own mv/ref/filter, unless one
+        # of the mi it covers is intra [SPEC §7.11.1]
+        cells = (row0 != uy) | (col0 != ux)
+        moved = np.nonzero(cells)[0]
+        if len(moved):
+            ref0_g = np.asarray(g("ref0"))
+            r0, c0 = row0[moved], col0[moved]
+            hh = uy[moved] + h4[moved] - r0
+            ww = ux[moved] + w4[moved] - c0
+            intra = np.zeros(len(moved), bool)
+            for dy in range(int(hh.max())):
+                for dx in range(int(ww.max())):
+                    cover = (dy < hh) & (dx < ww)
+                    mr = np.minimum(r0 + dy, mi_rows - 1)
+                    mc = np.minimum(c0 + dx, mi_cols - 1)
+                    intra |= cover & (ref0_g[mr, mc] <= INTRA_FRAME)
+            cells[moved] = ~intra
+        pw = ((ux + w4 - col0) * 4) >> ssx
+        ph = ((uy + h4 - row0) * 4) >> ssy
+        # each unit's pieces, up to 2x2 of its prediction size; a unit
+        # not cut is one piece of its whole size
+        pred_w = np.where(cells, (w4 * 4) >> ssx, pw)
+        pred_h = np.where(cells, (h4 * 4) >> ssy, ph)
+        jy, jx = np.divmod(np.arange(4), 2)
+        yy = jy * pred_h[:, None]
+        xx = jx * pred_w[:, None]
+        u, k = np.nonzero((yy < ph[:, None]) & (xx < pw[:, None]))
+        yy, xx = yy[u, k], xx[u, k]
+        pl, sx_, sy_, cut = plane[u], ssx[u], ssy[u], cells[u]
+        x = ((col0[u] * 4) >> sx_) + xx
+        y = ((row0[u] * 4) >> sy_) + yy
+        w, h = pred_w[u], pred_h[u]
+        mr = np.where(cut, row0[u] + ((yy << sy_) >> 2), uy[u])
+        mc = np.where(cut, col0[u] + ((xx << sx_) >> 2), ux[u])
+        tracing.count("lanes.rows", len(u))
+        tracing.count("lanes.pieces", int(np.count_nonzero(cut)))
+
+        def at(name):
+            return np.asarray(g(name))[mr, mc].astype(np.int64)
+
+        ref0, ref1, interp = at("ref0"), at("ref1"), at("interp")
+        comp = ref1 > INTRA_FRAME
+        rows = np.zeros((len(u), len(MC_FIELDS)), np.int64)
+        for f, v in (("x", x), ("y", y), ("w", w), ("h", h),
+                     ("base", np.asarray(sch.plane_base, np.int64)[pl]),
+                     ("stride", np.asarray([d[1] for d in sch.alloc_dims],
+                                           np.int64)[pl])):
+            rows[:, _MF[f]] = v
+        rows[:, _MF["rb0"]:_MF["vf0"] + 1] = self._list_params(
+            pl, x, y, w, h, at("mv0y"), at("mv0x"), ref0, interp, sx_, sy_)
+        c = np.nonzero(comp)[0]
+        if len(c):
+            mv1y, mv1x = at("mv1y")[c], at("mv1x")[c]
+            rows[c, _MF["rb1"]:_MF["vf1"] + 1] = self._list_params(
+                pl[c], x[c], y[c], w[c], h[c], mv1y, mv1x, ref1[c],
+                interp[c], sx_[c], sy_[c])
+            self._compound_weights(rows, c, ref0[c], ref1[c],
+                                   at("compound_type")[c], hdr, sch.bd)
+        key = _bucket_for(w, h) * 2 + comp
+        kinds, first = np.unique(key, return_index=True)
+        return {(int(k) >> 1, int(k) & 1): rows[key == k]
+                for k in kinds[np.argsort(first)]}
+
+    @staticmethod
+    def _compound_weights(rows, c, ref0, ref1, ctype, hdr, bd):
+        """w0, w1 and bshift of the compound lanes `c`: distance weights
+        (libaom's, per (ref0, ref1) pair) where `ctype` is 1, else the
+        average."""
+        post = 14 - (5 if bd == 12 else 3) - 7
         order_hint = hdr.get("order_hint", 0)
         order_hints = hdr.get("order_hints", [0] * 8)
         hint_bits = hdr.get("order_hint_bits", 0)
         enable_hint = hdr.get("enable_order_hint_seq", 0)
 
-        def rel_dist(a, b):
+        def dist(ref):
             if not enable_hint:
                 return 0
-            diff = a - b
+            diff = order_hints[ref] - order_hint
             m = 1 << (hint_bits - 1)
-            return (diff & (m - 1)) - (diff & m)
+            return min(I.MAX_FRAME_DISTANCE,
+                       abs((diff & (m - 1)) - (diff & m)))
 
-        def gi(name, r, c):
-            return int(g(name)[r, c])
-
-        lanes = {}  # (T, comp) -> list of rows
-
-        def emit(plane, px, py, pw, ph, mr, mc):
-            """One prediction unit from the mi at (mr, mc)."""
-            ssx = sub_x if plane else 0
-            ssy = sub_y if plane else 0
-            ref0 = gi("ref0", mr, mc)
-            ref1 = gi("ref1", mr, mc)
-            interp = gi("interp", mr, mc)
-            comp = ref1 > INTRA_FRAME
-            row = np.zeros(len(MC_FIELDS), np.int64)
-            row[_MF["x"]], row[_MF["y"]] = px, py
-            row[_MF["base"]] = sch.plane_base[plane]
-            row[_MF["stride"]] = sch.alloc_dims[plane][1]
-            row[_MF["w"]], row[_MF["h"]] = pw, ph
-            p0 = self._list_params(plane, px, py, pw, ph,
-                                   gi("mv0y", mr, mc), gi("mv0x", mr, mc),
-                                   ref0, interp, ssx, ssy)
-            for k, f in enumerate(("rb0", "rs0", "lx0", "ly0", "cx0",
-                                   "cy0", "hf0", "vf0")):
-                row[_MF[f]] = p0[k]
-            if comp:
-                p1 = self._list_params(plane, px, py, pw, ph,
-                                       gi("mv1y", mr, mc),
-                                       gi("mv1x", mr, mc),
-                                       ref1, interp, ssx, ssy)
-                for k, f in enumerate(("rb1", "rs1", "lx1", "ly1", "cx1",
-                                       "cy1", "hf1", "vf1")):
-                    row[_MF[f]] = p1[k]
-                if gi("compound_type", mr, mc) == 1:  # distance-weighted
-                    d0 = min(I.MAX_FRAME_DISTANCE,
-                             abs(rel_dist(order_hints[ref1], order_hint)))
-                    d1 = min(I.MAX_FRAME_DISTANCE,
-                             abs(rel_dist(order_hints[ref0], order_hint)))
-                    fwd, bck = I.dist_weights(d0, d1)
-                    row[_MF["w0"]], row[_MF["w1"]] = fwd, bck
-                    row[_MF["bshift"]] = post + 4
-                else:                                  # average
-                    row[_MF["w0"]] = row[_MF["w1"]] = 1
-                    row[_MF["bshift"]] = post + 1
-            key = (_bucket_for(pw, ph), int(comp))
-            lanes.setdefault(key, []).append(row)
-
-        for b in blocks:
-            by, bx = int(b) // mi_cols, int(b) % mi_cols
-            bsize = gi("bsize", by, bx)
-            bw4, bh4 = BLOCK_W4[bsize], BLOCK_H4[bsize]
-            has_chroma = num_planes > 1 and \
-                ((by & 1) or not (bh4 & 1) or not sub_y) and \
-                ((bx & 1) or not (bw4 & 1) or not sub_x)
-            n_planes = num_planes if has_chroma else 1
-            for plane in range(n_planes):
-                ssx = sub_x if plane else 0
-                ssy = sub_y if plane else 0
-                row0, col0 = by, bx
-                if plane and ssy and bh4 == 1:
-                    row0 = by & ~1
-                if plane and ssx and bw4 == 1:
-                    col0 = bx & ~1
-                cells = False
-                if plane and (row0 != by or col0 != bx):
-                    some_intra = False
-                    for mr in range(row0, by + bh4):
-                        for mc in range(col0, bx + bw4):
-                            if gi("ref0", mr, mc) <= INTRA_FRAME:
-                                some_intra = True
-                    cells = not some_intra
-                px0 = (col0 * 4) >> ssx
-                py0 = (row0 * 4) >> ssy
-                pw = ((bx + bw4 - col0) * 4) >> ssx
-                ph = ((by + bh4 - row0) * 4) >> ssy
-                if cells:
-                    # sub-8x8 chroma: one piece per covering mi, each
-                    # from that mi's own mv/ref/filter [SPEC §7.11.1]
-                    pred_w = (bw4 * 4) >> ssx
-                    pred_h = (bh4 * 4) >> ssy
-                    for yy in range(0, ph, pred_h):
-                        for xx in range(0, pw, pred_w):
-                            mr = row0 + ((yy << ssy) >> 2)
-                            mc = col0 + ((xx << ssx) >> 2)
-                            emit(plane, px0 + xx, py0 + yy,
-                                 pred_w, pred_h, mr, mc)
-                else:
-                    emit(plane, px0, py0, pw, ph, by, bx)
-        return {k: np.asarray(v, np.int64) for k, v in lanes.items()}
+        dw = ctype == 1
+        pair = ref0 * _REFS + ref1
+        wts = np.ones((len(c), 2), np.int64)
+        for p in np.unique(pair[dw]).tolist():
+            wts[dw & (pair == p)] = I.dist_weights(dist(p % _REFS),
+                                                   dist(p // _REFS))
+        rows[c, _MF["w0"]] = wts[:, 0]
+        rows[c, _MF["w1"]] = wts[:, 1]
+        rows[c, _MF["bshift"]] = np.where(dw, post + 4, post + 1)

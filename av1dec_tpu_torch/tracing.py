@@ -63,7 +63,10 @@ COPIES = ("h2d_copies", "h2d_bytes", "d2h_copies", "d2h_bytes")
 # host-path inter blocks by motion kind (InterPredictor.predict_block)
 BLOCKS = ("blocks.simple", "blocks.obmc", "blocks.local_warp",
           "blocks.global_warp")
-COUNTERS = COPIES + BLOCKS
+# device MC lanes built by InterPlan._build_lanes, and the sub-8x8
+# chroma pieces among them
+LANES = ("lanes.rows", "lanes.pieces")
+COUNTERS = COPIES + BLOCKS + LANES
 
 _clock = time.perf_counter
 

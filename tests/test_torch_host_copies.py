@@ -65,7 +65,10 @@ PARTIAL = [
      {"_postfilter_chain", "DeviceRecon", "prep_batch", "dispatch_batch"}),
     ("ops/kernels/mc.py", "ops/kernels/mc.py",
      {"_mc_list", "_mc_bucket", "run_mc"}),
-    ("pipeline/device_inter.py", "pipeline/device_inter.py", {"InterPlan"}),
+    # _bucket_for takes arrays too, for InterPlan's whole-frame lanes; held
+    # to the reference's in test_lifted_helpers_and_tables
+    ("pipeline/device_inter.py", "pipeline/device_inter.py",
+     {"InterPlan", "_bucket_for"}),
     ("pipeline/recon.py", "pipeline/recon.py", {"FrameRecon"}),
 ]
 # reference top-level names each port module leaves out
@@ -102,8 +105,11 @@ DROPPED = {
 DR_METHODS = ["_needs_pre_cdef", "_residuals_flat_np", "_bucket_rows",
               "_palette_tensor", "_lr_wiener_args", "_superres_args",
               "finish_host"]
-# methods of InterPlan copied as they are
-IP_METHODS = ["_pack_refs", "_list_params", "_build_lanes"]
+# methods of InterPlan copied as they are (not _list_params and
+# _build_lanes: whole-frame NumPy rewrite; output held to the
+# reference's by tests/test_torch_inter_lanes.py and
+# test_torch_inter.py's test_inter_plan_matches_jax)
+IP_METHODS = ["_pack_refs"]
 # methods of InterPredictor copied as they are (all but predict_block,
 # which builds the difference-weighted mask from the luma predictions,
 # and _compound_blend, which takes it, and _interintra, which builds
@@ -268,6 +274,9 @@ def test_lifted_helpers_and_tables():
         (jdi.MC_BUCKETS, jdi.BLOCK_W4, jdi.BLOCK_H4)
     for w in range(1, 140):
         assert tdi._bucket_for(w, 4) == jdi._bucket_for(w, 4)
+    np.testing.assert_array_equal(
+        tdi._bucket_for(np.arange(1, 140), np.arange(139, 0, -1)),
+        [jdi._bucket_for(w, 140 - w) for w in range(1, 140)])
 
 
 def _plans_equal(a, b):

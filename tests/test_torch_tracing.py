@@ -60,7 +60,8 @@ def test_decoder_records(native_lib, name, path):
     """Every record of a stream with inter frames on the device path
     (`lowdelay`) and on the host pixel path (`obmc`): its index, its
     spans' self times summing to `ms`, `inter_plan_ms` from its spans,
-    no copies on the CPU; and `collect()`'s records of the decode."""
+    MC lanes counted where an InterPlan ran, no copies on the CPU; and
+    `collect()`'s records of the decode."""
     t0 = time.perf_counter()
     with tracing.collect() as records:
         dec, _ = _decode(name)
@@ -83,6 +84,10 @@ def test_decoder_records(native_lib, name, path):
         assert all(s[k] == 0 for k in tracing.COPIES)
         if sum(s["inter_blocks"].values()):
             assert not s["intra"] and s["recon_path"] == "host"
+        # MC lanes are built exactly where an InterPlan is
+        lanes = s["inter_lanes"]
+        assert (lanes["rows"] > 0) == ("inter_plan" in spans)
+        assert 0 <= lanes["pieces"] <= lanes["rows"]
     assert stats[0]["spans_ms"]["parse"] > 0
     # an inter frame of the stream's path has an InterPlan, or inter
     # blocks on the host pixel path
