@@ -151,7 +151,8 @@ class Decoder:
         kernel launches, and from `tracing` its index `frame`, `spans_ms`
         (self ms by span), the copies to and from the card, the host
         path's `inter_blocks` by motion kind and the device path's
-        `inter_lanes` (MC lane `rows`, sub-8x8 chroma `pieces`)."""
+        `inter_lanes` (MC lane `rows`, sub-8x8 chroma `pieces`) and
+        `refs_bytes` (the reference samples packed for MC, in bytes)."""
         out: List[OutputFrame] = []
         with tracing.unit(self._unit), tracing.span("parse"):
             frames = self._parser.parse_tu(tu, with_plans=True)
@@ -190,6 +191,7 @@ class Decoder:
                                       for k in tracing.BLOCKS}
             record["inter_lanes"] = {k[len("lanes."):]: unit.counts[k]
                                      for k in tracing.LANES}
+            record["refs_bytes"] = unit.counts["refs.bytes"]
             self.stats.append(record)
             self._unit = tracing.Unit(self._id, unit.frame + 1)
         if self.config.max_frames:
@@ -414,7 +416,7 @@ STAGE_SPANS = {
                   "prep.deblock_maps"),
     "scan": ("upload", "upload.plan", "upload.mc", "dispatch.scan"),
     "postfilter": ("dispatch", "dispatch.post_args"),
-    "fetch": ("fetch", "fetch.copy", "fetch.tail"),
+    "fetch": ("fetch", "fetch.copy", "fetch.widen", "fetch.tail"),
 }
 
 

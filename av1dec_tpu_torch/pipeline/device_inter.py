@@ -161,12 +161,14 @@ def pack_ref_flat(pieces, device):
     """Concatenate the reference pieces (host arrays or tensors of the
     decoder's device reference cache) into one flat tensor on `device`.
     High-bit-depth pieces are widened to int32 first, as the gather
-    would after reading them."""
+    would after reading them.  Its bytes count in `refs.bytes`."""
     flat = []
     for p in pieces:
         t = tracing.to_device(p, device).reshape(-1)
         flat.append(t if t.dtype == torch.uint8 else t.to(torch.int32))
-    return torch.cat(flat)
+    out = torch.cat(flat)
+    tracing.count("refs.bytes", out.nbytes)
+    return out
 
 
 def upload_lanes(lanes, bd, device, base_off=0):

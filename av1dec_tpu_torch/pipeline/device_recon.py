@@ -465,12 +465,15 @@ class DeviceRecon:
     def fetch(self, final):
         """Device planes -> host int64 planes, with the host tail."""
         with tracing.span("fetch.copy"):
-            out = [tracing.to_host(p).numpy().astype(np.int64)
-                   for p in final]
+            out = [tracing.to_host(p).numpy() for p in final]
             pre = None
             if self._pre_cdef_dev is not None:
-                pre = [tracing.to_host(p).numpy().astype(np.int64)
+                pre = [tracing.to_host(p).numpy()
                        for p in self._pre_cdef_dev]
+        with tracing.span("fetch.widen"):
+            out = [a.astype(np.int64) for a in out]
+            if pre is not None:
+                pre = [a.astype(np.int64) for a in pre]
         with tracing.span("fetch.tail"):
             return self.finish_host(out, pre)
 

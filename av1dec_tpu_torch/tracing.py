@@ -53,7 +53,7 @@ NAMES = (
     "prep", "prep.residuals", "prep.rows", "prep.deblock_maps",
     "upload", "upload.plan", "upload.mc",  # to_torch_inputs
     "dispatch", "dispatch.scan", "dispatch.post_args",
-    "fetch", "fetch.copy", "fetch.tail",  # DeviceRecon.fetch
+    "fetch", "fetch.copy", "fetch.widen", "fetch.tail",  # DeviceRecon.fetch
     "host", "host.walk", "host.residuals", "host.filter",  # FrameRecon
     "host.inter_pred",  # InterPredictor.predict_block (accumulated)
     "emit",         # Decoder._emit: film grain, OutputFrame
@@ -66,7 +66,9 @@ BLOCKS = ("blocks.simple", "blocks.obmc", "blocks.local_warp",
 # device MC lanes built by InterPlan._build_lanes, and the sub-8x8
 # chroma pieces among them
 LANES = ("lanes.rows", "lanes.pieces")
-COUNTERS = COPIES + BLOCKS + LANES
+# "refs.bytes": the bytes of reference samples device_inter.pack_ref_flat
+# packs for MC, at the width MC reads them (1 a sample at 8 bits, 4 above)
+COUNTERS = COPIES + BLOCKS + LANES + ("refs.bytes",)
 
 _clock = time.perf_counter
 

@@ -27,7 +27,8 @@ Writes `av1dec_tpu_torch/testdata/`:
   `tools/gen_inter_battery.py:gen_case` with its seeds, plus
   INTER_CASES: a low-delay 10-bit stream with the exotic inter tools
   off, COMPOUND_CASES: streams with compound blocks (average,
-  distance-weighted and difference-weighted), and HOST_CASES: the
+  distance-weighted and difference-weighted; `ra_bd10` at 10 bits,
+  every frame on the device path), and HOST_CASES: the
   battery streams of `tests/test_inter_bitexact.py` that the reference
   takes partly on its host pixel path, or that carry film grain;
 - `occlusion.ivf` (OCCLUSION_CASE): a disc moving over a moving
@@ -126,6 +127,12 @@ COMPOUND_CASES = {
                                       ("auto-alt-ref", "1")])
     for name, dist in (("c4", "1"), ("c5", "0"))
 }
+# a 10-bit random-access stream (lag 8, alt-ref frames, distance-
+# weighted compound), whose every frame the device path takes
+COMPOUND_CASES["ra_bd10"] = dict(
+    w=256, h=144, n=12, cpu=1, lag=8, bd=10,
+    extra=_SIMPLE_TOOLS + [("enable-dist-wtd-comp", "1"),
+                           ("auto-alt-ref", "1")])
 COMPOUND_CASES["masked"] = dict(
     w=192, h=128, n=12, cpu=1, lag=8,
     extra=[t for t in _SIMPLE_TOOLS if t[0] != "enable-masked-comp"] +
@@ -490,7 +497,7 @@ def main():
             name in (BIG_HOST, GOP_CASE)
         if name in PORT_CHECKED:
             ref, same, paths = check_stream_port(path)
-            if name == BIG_COMPOUND:
+            if name in (BIG_COMPOUND, "ra_bd10"):
                 same = same and all(p == "device" for p in paths)
         else:
             ref, same, paths = check_stream(path, host)
