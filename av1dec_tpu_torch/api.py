@@ -151,8 +151,10 @@ class Decoder:
         kernel launches, and from `tracing` its index `frame`, `spans_ms`
         (self ms by span), the copies to and from the card, the host
         path's `inter_blocks` by motion kind and the device path's
-        `inter_lanes` (MC lane `rows`, sub-8x8 chroma `pieces`) and
-        `refs_bytes` (the reference samples packed for MC, in bytes)."""
+        `inter_lanes` (MC lane `rows`, sub-8x8 chroma `pieces`),
+        `refs_bytes` (the reference samples packed for MC, in bytes) and
+        `residual_blocks` (the blocks with a residual whose levels went
+        to the device, `card`, or that took the NumPy route, `numpy`)."""
         out: List[OutputFrame] = []
         with tracing.unit(self._unit), tracing.span("parse"):
             frames = self._parser.parse_tu(tu, with_plans=True)
@@ -192,6 +194,9 @@ class Decoder:
             record["inter_lanes"] = {k[len("lanes."):]: unit.counts[k]
                                      for k in tracing.LANES}
             record["refs_bytes"] = unit.counts["refs.bytes"]
+            record["residual_blocks"] = {
+                k[len("residuals."):]: unit.counts[k]
+                for k in tracing.RESIDUALS}
             self.stats.append(record)
             self._unit = tracing.Unit(self._id, unit.frame + 1)
         if self.config.max_frames:
@@ -414,7 +419,8 @@ STAGE_SPANS = {
                   "host.inter_pred"),
     "host_prep": ("prep", "prep.residuals", "prep.rows",
                   "prep.deblock_maps"),
-    "scan": ("upload", "upload.plan", "upload.mc", "dispatch.scan"),
+    "scan": ("upload", "upload.plan", "upload.mc", "upload.residuals",
+             "dispatch.scan"),
     "postfilter": ("dispatch", "dispatch.post_args"),
     "fetch": ("fetch", "fetch.copy", "fetch.widen", "fetch.tail"),
 }

@@ -15,11 +15,15 @@ size: the JAX package's power-of-two padding only keeps its jit keys
 stable.  `residual_step` is not ported: nothing calls it.
 
 `residuals_packed` runs every bucket of a call at once, from one packed
-int32 buffer (`pack_buckets`: a descriptor table, then every block's
-coded levels).  A CUDA buffer runs the hand-written kernel `csrc/itx.cu`,
-one launch for all the blocks (counted in `launches`); a CPU buffer runs
-the plain version `_residuals_plain`, `residual_bucket` per bucket;
-nothing else is accepted.
+int32 buffer (`pack_blocks`, or `pack_buckets` for bucket lists: a
+descriptor table, then every block's coded levels); each
+block's residual goes to its descriptor's `out` offset.  A CUDA buffer
+runs the hand-written kernel `csrc/itx.cu`, one launch for all the
+blocks (counted in `launches`); a CPU buffer runs the plain version
+`_residuals_plain`, `residual_bucket` per bucket; nothing else is
+accepted.  The descriptors are on the device by the call, so the
+packing records how far the blocks' residuals reach (`Spans.reach`) and
+the wrapper holds that to the output's words on every device.
 """
 import math
 
@@ -45,6 +49,10 @@ DESC_FIELDS = ["lev", "out", "tx_size", "tx_type", "dcq", "acq"]
 _PARAMS = ["out", "desc", "levels", "levels_len", "bd", "spans"]
 # spans a call, at most (every valid transform is 185)
 MAX_SPANS = 190
+# by tx_size: the coded levels of a block (64 -> 32 clipped) and its
+# residual pixels
+LEVELS = np.array([min(w, 32) * min(h, 32) for w, h in S.TX_DIMS])
+PIXELS = np.array([w * h for w, h in S.TX_DIMS])
 
 
 def valid_transforms():
@@ -134,41 +142,87 @@ def residual_bucket(levels, dcq, acq, tx_size, tx_type, bd):
                                    tx_type, bd)
 
 
+class Spans(list):
+    """`pack_blocks`' spans [(tx_size, tx_type, first block, blocks,
+    levels offset, residual offset)], with `reach`: the largest `out` +
+    pixels of any of their blocks, the residual words the blocks
+    need."""
+
+    def __init__(self, spans, reach):
+        super().__init__(spans)
+        self.reach = reach
+
+
 def pack_buckets(buckets):
     """One int32 buffer for every block of `buckets` [(levels [B, n],
     dcq [B], acq [B], tx_size, tx_type)] (host arrays, levels in coded
-    layout): the [blocks, len(DESC_FIELDS)] descriptor table, then the
-    levels of every block in order.  Returns (buffer, spans, residual
-    words): spans [(tx_size, tx_type, first block, blocks, levels
-    offset, residual offset)] a bucket, the offsets into the levels
-    part and into the [words] residual output."""
-    spans, blk, lev, out = [], 0, 0, 0
-    for levels, _, _, tsz, tt in buckets:
-        B, n = levels.shape
-        w, h = S.TX_DIMS[tsz]
-        spans.append((tsz, tt, blk, B, lev, out))
-        blk, lev, out = blk + B, lev + B * n, out + B * w * h
+    layout; no bucket empty, no two neighbours of one transform): the
+    [blocks, len(DESC_FIELDS)] descriptor table, then the levels of
+    every block in order (`pack_blocks`, the residuals end to end).
+    Returns (buffer, spans, residual words): spans [(tx_size, tx_type,
+    first block, blocks, levels offset, residual offset)] a bucket, the
+    offsets into the levels part and into the [words] residual
+    output."""
+    counts = [len(b[0]) for b in buckets]
+    tsz = np.repeat([b[3] for b in buckets], counts).astype(np.int64)
+    tt = np.repeat([b[4] for b in buckets], counts)
+    px, n = PIXELS[tsz], LEVELS[tsz]
+    return pack_blocks(
+        tsz, tt, np.cumsum(px) - px,
+        np.concatenate([np.zeros(0, np.int32)] + [b[1] for b in buckets]),
+        np.concatenate([np.zeros(0, np.int32)] + [b[2] for b in buckets]),
+        np.concatenate([np.zeros(0, np.int32)] +
+                       [np.asarray(b[0]).reshape(-1) for b in buckets]),
+        np.cumsum(n) - n, int(px.sum()))
+
+
+def pack_blocks(tsz, tt, out, dcq, acq, src, src_off, words):
+    """One int32 buffer for blocks sorted by (tx_size, tx_type), given
+    as arrays, one entry a block: its transform, its residual's offset
+    `out` into the [words] output, its quantizers, and its coded levels,
+    `LEVELS[tx_size]` words of `src` from `src_off`.  The buffer is the
+    [blocks, len(DESC_FIELDS)] descriptor table, then the levels of
+    every block in order, gathered with one fancy index.  Returns
+    (buffer, spans, words): `Spans`, a span a run of one transform (its
+    residual offset is its first block's).  Raises ValueError where a
+    block's residual leaves the output."""
+    tsz, tt = np.asarray(tsz, np.int64), np.asarray(tt, np.int64)
+    out = np.asarray(out, np.int64)
+    B = len(tsz)
+    reach = int((out + PIXELS[tsz]).max()) if B else 0
+    if B and (out.min() < 0 or reach > words):
+        raise ValueError("pack_blocks: a residual beyond the output")
+    n = LEVELS[tsz]
+    lev = np.cumsum(n) - n
+    total = int(n.sum())
+    F = len(DESC_FIELDS)
     # at least one level word: the kernel's levels are never empty
-    buf = np.zeros(blk * len(DESC_FIELDS) + max(lev, 1), np.int32)
-    desc = buf[:blk * len(DESC_FIELDS)].reshape(blk, len(DESC_FIELDS))
-    levs = buf[blk * len(DESC_FIELDS):]
-    for (levels, dcq, acq, _, _), (tsz, tt, b0, B, l0, o0) in zip(buckets,
-                                                                  spans):
-        n = levels.shape[1]
-        w, h = S.TX_DIMS[tsz]
-        d = desc[b0:b0 + B]
-        d[:, 0] = l0 + n * np.arange(B)
-        d[:, 1] = o0 + w * h * np.arange(B)
-        d[:, 2], d[:, 3] = tsz, tt
-        d[:, 4], d[:, 5] = dcq, acq
-        levs[l0:l0 + B * n] = levels.reshape(-1)
-    return buf, spans, out
+    buf = np.zeros(B * F + max(total, 1), np.int32)
+    desc = buf[:B * F].reshape(B, F)
+    desc[:, 0], desc[:, 1], desc[:, 2], desc[:, 3] = lev, out, tsz, tt
+    desc[:, 4], desc[:, 5] = dcq, acq
+    buf[B * F:B * F + total] = src[
+        np.repeat(np.asarray(src_off, np.int64) - lev, n) +
+        np.arange(total)]
+    key = tsz * 16 + tt
+    first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if B else []
+    ends = np.r_[first[1:], B]
+    spans = [(int(tsz[b]), int(tt[b]), int(b), int(e - b), int(lev[b]),
+              int(out[b])) for b, e in zip(first, ends)]
+    return buf, Spans(spans, reach), words
 
 
 def residuals_packed(buf, spans, words, bd):
-    """The residuals of `pack_buckets`' buffer on its device: int32
-    [words], each bucket's [B, h, w] blocks at its span's offset.  A
-    CUDA buffer runs the kernel, a CPU buffer the plain version."""
+    """The residuals of `pack_buckets`' or `pack_blocks`' buffer on its
+    device: int32 [words], each block's [h, w] residual at its
+    descriptor's `out` (words no block covers are left undefined).  A
+    CUDA buffer runs the kernel, a CPU buffer the plain version.  Raises
+    ValueError, on every device, for spans that do not say how far
+    their residuals reach (not `Spans`) or reach beyond `words`."""
+    reach = getattr(spans, "reach", None)
+    if reach is None or reach > words:
+        raise ValueError("residuals_packed: spans not from pack_blocks, "
+                         "or a residual beyond the output")
     dev = buf.device
     if dev.type == "cpu":
         return _residuals_plain(buf, spans, words, bd)
@@ -189,13 +243,14 @@ def _residuals_plain(buf, spans, words, bd):
     buffer, on any device (`residuals_packed`'s arguments)."""
     desc, levs = _split(buf, spans)
     out = torch.empty(words, dtype=torch.int32, device=buf.device)
-    for tsz, tt, b0, B, l0, o0 in spans:
+    for tsz, tt, b0, B, l0, _ in spans:
         w, h = S.TX_DIMS[tsz]
         n = min(w, 32) * min(h, 32)
         d = desc[b0:b0 + B]
         res = residual_bucket(levs[l0:l0 + B * n].view(B, n), d[:, 4],
                               d[:, 5], tsz, tt, bd)
-        out[o0:o0 + B * w * h] = res.reshape(-1)
+        at = d[:, 1, None].long() + torch.arange(w * h, device=buf.device)
+        out[at.reshape(-1)] = res.reshape(-1)
     return out
 
 
@@ -218,12 +273,9 @@ def _residuals_kernel(buf, spans, words, bd):
                          f"spans")
     blocks = sum(s[3] for s in spans)
     levels = buf.numel() - blocks * len(DESC_FIELDS)
-    for tsz, _, _, B, l0, o0 in spans:
-        w, h = S.TX_DIMS[tsz]
-        if l0 + B * min(w, 32) * min(h, 32) > levels or \
-                o0 + B * w * h > words:
-            raise ValueError("residuals_packed: a span beyond the levels "
-                             "or the residuals")
+    for tsz, _, _, B, l0, _ in spans:
+        if l0 + B * int(LEVELS[tsz]) > levels:
+            raise ValueError("residuals_packed: a span beyond the levels")
     out = torch.empty(words, dtype=torch.int32, device=dev)
     if blocks == 0:
         return out

@@ -1,16 +1,20 @@
 """Device frame reconstruction driver (torch).
 
 Port of `av1dec_tpu.pipeline.device_recon` for intra frames and
-translational inter frames: the host packs residuals (NumPy dequant +
-inverse transform), wavefront lanes, palette tensors, deblock edge maps
-and, for inter frames, the MC lanes and reference pieces of their
-`InterPlan` (`prep_batch`); the device runs, per inter frame, the MC
-pass (`ops/kernels/mc.mc_into`, predictions straight into the frame
-buffer), then the batched wavefront scan (intra lanes and MF_INTER
-residual lanes) and, per frame, the postfilter chain slice -> deblock
--> CDEF -> superres -> Wiener LR -> narrowing cast (`dispatch_batch`);
-on a card, deblock, CDEF, superres and Wiener LR are hand-written
-kernels (`ops/kernels/{deblock,cdef,superres,lr}.py`).
+translational inter frames: the host packs the coded levels of every
+block with a residual, wavefront lanes, palette tensors, deblock edge
+maps and, for inter frames, the MC lanes and reference pieces of their
+`InterPlan` (`prep_batch`); the device computes the residuals from the
+levels (B7, `recon.residuals_packed`: `csrc/itx.cu` on a card), runs,
+per inter frame, the MC pass (`ops/kernels/mc.mc_into`, predictions
+straight into the frame buffer), then the batched wavefront scan (intra
+lanes and MF_INTER residual lanes) and, per frame, the postfilter chain
+slice -> deblock -> CDEF -> superres -> Wiener LR -> narrowing cast
+(`dispatch_batch`); on a card, deblock, CDEF, superres and Wiener LR are
+hand-written kernels (`ops/kernels/{deblock,cdef,superres,lr}.py`).
+A batch with a quantizer matrix or a lossless block (the WHT) keeps the
+reference's route: NumPy dequant and inverse transform on the host
+(`_residuals_flat_np`), the residuals uploaded.
 Frames with a self-guided restoration unit finish LR on the host after
 the fetch (`finish_host`).
 
@@ -40,6 +44,7 @@ import torch
 from av1dec_tpu_torch import resolve_device, tracing
 from av1dec_tpu_torch.ops.kernels import cdef as cdef_dev
 from av1dec_tpu_torch.ops.kernels.deblock import deblock_planes
+from av1dec_tpu_torch.ops.kernels.itx import pack_blocks
 from av1dec_tpu_torch.ops.kernels.lr import lr_wiener_planes
 from av1dec_tpu_torch.ops.kernels.mc import mc_into
 from av1dec_tpu_torch.ops.kernels.superres import superres_planes
@@ -48,6 +53,7 @@ from av1dec_tpu_torch.ops.kernels.wavefront import (_DEV_FIELDS,
                                                     plan_windows, scan_into)
 from av1dec_tpu_torch.ops.spec import itx
 from av1dec_tpu_torch.pipeline import device_inter as di
+from av1dec_tpu_torch.pipeline import recon
 from av1dec_tpu_torch.pipeline import wavefront as wf
 
 TX_DIMS = itx.TX_DIMS
@@ -191,6 +197,32 @@ class DeviceRecon:
                 flat = np.clip(flat, -32768, 32767)
             buf[b: b + flat.size] = flat
         return buf
+
+    def _coded_blocks(self):
+        """The blocks with a residual slot, in slot order, for the
+        device's residuals: arrays (tx_size, tx_type, residual offset in
+        the frame's `_residuals_flat_np` layout, DC and AC quantizers,
+        offset of the coded levels in `plans.coeffs`); None where the
+        frame needs the NumPy route (a quantizer matrix, or a lossless
+        block: the WHT)."""
+        sch, plans = self.sch, self.plans
+        q = self.hdr["quant"]
+        if q.get("using_qmatrix") or plans.grid("lossless").any():
+            return None
+        keys = sorted(sch.res_recs)
+        idx = np.concatenate([np.zeros(0, np.int64)] + [
+            np.asarray(sch.res_recs[k], np.int64) for k in keys])
+        out = np.concatenate([np.zeros(0, np.int64)] + [
+            self._res_px_base[k] + k[0] * k[1] *
+            np.arange(len(sch.res_recs[k])) for k in keys])
+        tx = plans.tx[idx].astype(np.int64)
+        plane = np.minimum(tx[:, 0], 2)
+        qidx = plans.grid("qindex").reshape(-1)[tx[:, 7]].astype(np.int64)
+        dcd = np.array([q["delta_q_y_dc"], q["delta_q_u_dc"],
+                        q["delta_q_v_dc"]])[plane]
+        acd = np.array([0, q["delta_q_u_ac"], q["delta_q_v_ac"]])[plane]
+        return (tx[:, 3], tx[:, 4], out,
+                *recon.quantizers(qidx, dcd, acd, sch.bd), tx[:, 6])
 
     # -- schedule packing --------------------------------------------------
     def _bucket_rows(self, t):
@@ -494,28 +526,57 @@ class DeviceRecon:
         return planes
 
 
+def _pack_levels(drs, blocks, rf):
+    """The coded levels of every frame's `_coded_blocks` in one
+    `itx.pack_blocks` buffer, sorted into (tx_size, tx_type) spans, each
+    block's residual at its slot in the scan's buffer (frame f at f *
+    `rf`).  Returns (buffer, spans, words)."""
+    srcs = [dr.plans.coeffs for dr in drs]
+    base = np.cumsum([0] + [len(c) for c in srcs[:-1]])
+    tsz, tt, out, dcq, acq, off = (np.concatenate(c) for c in zip(*(
+        (t, ty, o + f * rf, dq, aq, c + base[f])
+        for f, (t, ty, o, dq, aq, c) in enumerate(blocks))))
+    order = np.lexsort((tt, tsz))
+    src = srcs[0] if len(srcs) == 1 else np.concatenate(srcs)
+    return pack_blocks(tsz[order], tt[order], out[order], dcq[order],
+                       acq[order], src, off[order], len(drs) * rf)
+
+
 @tracing.traced("prep")
 def prep_batch(drs):
-    """Host-side half of the batched device decode: residual packing,
-    lane assembly, palette tensors, deblock edge maps and the inter
-    frames' MC lanes and reference pieces ("mc": [(frame index, lanes,
-    pieces)]), with no device work.  Frames share one flat buffer at a
-    per-frame stride; `decode_stream_batched` runs this on a worker
-    thread so it overlaps the device work of the previous batch."""
+    """Host-side half of the batched device decode: the residuals' coded
+    levels ("res_levels": `itx.pack_blocks`' (buffer, spans, words)), or
+    where a frame needs the reference's NumPy route the residuals
+    themselves ("res_np"; the other key None), lane assembly, palette
+    tensors, deblock edge maps and the inter frames' MC lanes and
+    reference pieces ("mc": [(frame index, lanes, pieces)]), with no
+    device work.  Frames share one flat buffer at a per-frame stride;
+    `decode_stream_batched` runs this on a worker thread so it overlaps
+    the device work of the previous batch.  Counts the blocks of each
+    route (`residuals.card`, `residuals.numpy`)."""
     K = len(drs)
     sch0 = drs[0].sch
     flat = sch0.flat_len + FLAT_PAD
     Pcap = {t: max(1, max(dr._pal_tot[t] for dr in drs)) for t in BUCKETS}
 
-    # packed residuals at a uniform per-frame stride (threaded: the
-    # itx lanes are large numpy ops that release the GIL)
+    # residuals at a uniform per-frame stride
     with tracing.span("prep.residuals"):
-        with ThreadPoolExecutor(2) as ex:
-            bufs = list(ex.map(lambda dr: dr._residuals_flat_np(), drs))
-        rf = max(1, max(len(b) for b in bufs))
-        res_np = np.zeros(K * rf, bufs[0].dtype)
-        for f, b in enumerate(bufs):
-            res_np[f * rf: f * rf + len(b)] = b
+        rf = max(1, max(dr._res_px_tot for dr in drs))
+        blocks = [dr._coded_blocks() for dr in drs]
+        res_np = res_levels = None
+        if all(b is not None for b in blocks):
+            res_levels = _pack_levels(drs, blocks, rf)
+            tracing.count("residuals.card", sum(len(b[0]) for b in blocks))
+        else:
+            # threaded: the itx lanes are large numpy ops that release
+            # the GIL
+            with ThreadPoolExecutor(2) as ex:
+                bufs = list(ex.map(lambda dr: dr._residuals_flat_np(), drs))
+            res_np = np.zeros(K * rf, bufs[0].dtype)
+            for f, b in enumerate(bufs):
+                res_np[f * rf: f * rf + len(b)] = b
+            tracing.count("residuals.numpy", sum(
+                n for dr in drs for n in dr.sch.res_count.values()))
 
     with tracing.span("prep.rows"):
         pal_np = {t: np.concatenate(
@@ -561,7 +622,8 @@ def prep_batch(drs):
           for f, dr in enumerate(drs) if dr._inter_plan is not None]
     return {
         "K": K, "flat": flat,
-        "res_np": res_np, "pal_np": pal_np, "inputs_np": inputs_np,
+        "res_np": res_np, "res_levels": res_levels,
+        "pal_np": pal_np, "inputs_np": inputs_np,
         "buckets": tuple(buckets), "dbl": dbl, "mc": mc,
         "config": (tuple(buckets), sch0.bd, sch0.sub_x, sch0.sub_y,
                    sch0.enable_edge_filter),
@@ -571,14 +633,16 @@ def prep_batch(drs):
 @tracing.traced("upload")
 def to_torch_inputs(prep, device):
     """Upload a `prep_batch` dict (this package's or the JAX package's:
-    the keys and layouts are the same; "mc" entries may hold either
-    package's InterPlan lanes) to `device`, and plan the scan: the
-    plain version's windows and their host flags, and the kernel's
-    per-level lane ranges and ticket table (`plan_levels`; the tickets
-    uploaded once, the rest kept on the host, so the launch reads no
-    device value).  Reference
-    pieces already on `device` are not copied.  Returns the dict
-    `dispatch_batch` and `scan_batch` take."""
+    the keys and layouts are the same, but the JAX package's has no
+    "res_levels", only "res_np"; "mc" entries may hold either package's
+    InterPlan lanes) to `device`, and plan the scan: the plain version's
+    windows and their host flags, and the kernel's per-level lane ranges
+    and ticket table (`plan_levels`; the tickets uploaded once, the rest
+    kept on the host, so the launch reads no device value).  The coded
+    levels go up in one copy (`upload.residuals`; "res_levels": buffer,
+    spans, words, bit depth, and "res" None), else the residuals
+    ("res").  Reference pieces already on `device` are not copied.
+    Returns the dict `dispatch_batch` and `scan_batch` take."""
     dev = torch.device(device)
     ts = [t for t, _ in prep["buckets"]]
     inputs = prep["inputs_np"]
@@ -596,9 +660,16 @@ def to_torch_inputs(prep, device):
         for f, lanes, pieces in prep.get("mc", ()):
             cfg, rows = di.upload_lanes(lanes, bd, dev, f * prep["flat"])
             mc.append((di.pack_ref_flat(pieces, dev), rows, cfg))
+    res = res_levels = None
+    if prep.get("res_levels") is None:
+        res = tracing.to_device(prep["res_np"], dev)
+    else:
+        buf, spans, words = prep["res_levels"]
+        with tracing.span("upload.residuals"):
+            res_levels = (tracing.to_device(buf, dev), spans, words, bd)
     return {
         "n": prep["K"] * prep["flat"], "flat": prep["flat"],
-        "res": tracing.to_device(prep["res_np"], dev),
+        "res": res, "res_levels": res_levels,
         "pal": {t: _i32(a, dev) for t, a in prep["pal_np"].items()},
         "packed": {t: _i32(inputs[t][0], dev) for t in ts},
         "windows": windows,
@@ -610,16 +681,28 @@ def to_torch_inputs(prep, device):
     }
 
 
+def batch_residuals(inputs):
+    """The scan's residual buffer of a `to_torch_inputs` dict: the
+    uploaded residuals, or those of the uploaded levels, computed on
+    their device by one `recon.residuals_packed` call (the kernel
+    `csrc/itx.cu` on a card, queued on the current stream) into int32
+    [words]."""
+    if inputs["res"] is not None:
+        return inputs["res"]
+    return recon.residuals_packed(*inputs["res_levels"])
+
+
 def scan_batch(inputs):
-    """The MC pass of every inter frame (at its offset in the flat
-    buffer), then the batched wavefront scan, both in place on one
-    buffer with its trash slot: flat int32 frame buffer on the
-    device."""
+    """The batch's residuals (`batch_residuals`), the MC pass of every
+    inter frame (at its offset in the flat buffer), then the batched
+    wavefront scan, both in place on one buffer with its trash slot:
+    flat int32 frame buffer on the device."""
     n = inputs["n"]
     frame = torch.zeros(n + 1, dtype=torch.int32, device=inputs["device"])
+    res = batch_residuals(inputs)
     for ref_flat, lanes, cfg in inputs["mc"]:
         mc_into(frame, ref_flat, lanes, cfg)
-    scan_into(frame, inputs["packed"], inputs["res"], inputs["pal"],
+    scan_into(frame, inputs["packed"], res, inputs["pal"],
               inputs["config"], inputs["windows"], inputs["levels"])
     return frame[:n]
 

@@ -45,18 +45,23 @@ DC_PRED = 0
 UV_CFL_PRED = 13
 
 
+def quantizers(qidx, dcd, acd, bd):
+    """Each block's (DC, AC) quantizer, int32, from its qindex and its
+    DC and AC deltas [SPEC §7.12.2]."""
+    bi = dequant._BD_IDX[bd]
+    return (DC_Q[bi, np.clip(qidx + dcd, 0, 255)].astype(np.int32),
+            AC_Q[bi, np.clip(qidx + acd, 0, 255)].astype(np.int32))
+
+
 def pack_residuals(buckets, bd):
     """`itx.pack_buckets` of buckets [(levels [B, n], qidx [B], dc delta
     [B], ac delta [B], tx_size, tx_type)]: each block's DC and AC
     quantizer from its qindex and deltas.  Returns (buffer, spans,
     residual words)."""
-    bi = dequant._BD_IDX[bd]
     packs = []
     for levels, qidx, dcd, acd, tsz, tt in buckets:
-        dcq = DC_Q[bi, np.clip(qidx + dcd, 0, 255)].astype(np.int32)
-        acq = AC_Q[bi, np.clip(qidx + acd, 0, 255)].astype(np.int32)
-        packs.append((np.asarray(levels).astype(np.int32), dcq, acq, tsz,
-                      tt))
+        packs.append((np.asarray(levels).astype(np.int32),
+                      *quantizers(qidx, dcd, acd, bd), tsz, tt))
     return pack_buckets(packs)
 
 

@@ -52,6 +52,7 @@ NAMES = (
     "inter_plan", "inter_plan.refs", "inter_plan.lanes",  # InterPlan
     "prep", "prep.residuals", "prep.rows", "prep.deblock_maps",
     "upload", "upload.plan", "upload.mc",  # to_torch_inputs
+    "upload.residuals",
     "dispatch", "dispatch.scan", "dispatch.post_args",
     "fetch", "fetch.copy", "fetch.widen", "fetch.tail",  # DeviceRecon.fetch
     "host", "host.walk", "host.residuals", "host.filter",  # FrameRecon
@@ -68,7 +69,11 @@ BLOCKS = ("blocks.simple", "blocks.obmc", "blocks.local_warp",
 LANES = ("lanes.rows", "lanes.pieces")
 # "refs.bytes": the bytes of reference samples device_inter.pack_ref_flat
 # packs for MC, at the width MC reads them (1 a sample at 8 bits, 4 above)
-COUNTERS = COPIES + BLOCKS + LANES + ("refs.bytes",)
+# transform blocks with a residual whose levels prep_batch packed for the
+# device's residuals ("residuals.card"), and those of batches that took
+# the NumPy route (a quantizer matrix or a lossless block)
+RESIDUALS = ("residuals.card", "residuals.numpy")
+COUNTERS = COPIES + BLOCKS + LANES + ("refs.bytes",) + RESIDUALS
 
 _clock = time.perf_counter
 

@@ -37,7 +37,12 @@ Phases (each raises on failure, so the script exits non-zero):
      device time (its kernel interval), wrapper-inclusive time, the
      plain version's time and the bound (bytes, operations, and the
      chain term: the device time of `wavefront_scan_floor`, the same
-     tickets, waits and publishes with no pixel work);
+     tickets, waits and publishes with no pixel work); each of these
+     batches whose coded levels went up (no quantizer matrix, no
+     lossless block) also holds `itx` on the device path, the scan's
+     residual buffer from `prep_batch`'s packed levels with each
+     block's `out` at its slot, to `_residuals_plain` on the card,
+     byte-equal on every word the blocks cover;
    - `mc` (the MC pass, one launch for every bucket of a frame) against
      `_mc_plain`, byte-equal, MC_REPEATS runs each, the trash slot
      never written: seeded lanes of every T from 4 to 128, single-list,
@@ -195,7 +200,8 @@ each GOP worker frame's `Decoder.stats` `scan_launches` and
 `scan_levels`, in 7d each rank's, against the levels of the frame it
 scanned): every scan ran on the kernel, to its last level; and the MC
 kernel's launches equal to the MC passes with lanes, the residual
-kernel's to the host frames with device buckets, the deblock kernel's to
+kernel's to the residual calls with blocks (a host frame's device
+buckets, a device-path batch's residuals), the deblock kernel's to
 one a device-path frame with a loop-filter level (in 7b and 7d through
 the workers' `deblock_launches`), the superres kernel's to the
 device-path frames with superres and the Wiener kernel's to those whose
@@ -819,16 +825,40 @@ def phase_scan(manifest, dev, int_rate):
     stream's first batch (up to 4 frames without inter lanes) and first
     frame with MF_INTER lanes (each as `Decoder(device="cuda")` gives
     it), and on BIG_INTER's first inter frame; then its times on BIG's
-    batch and on that inter frame.  Returns BIG's times."""
+    batch and on that inter frame.  Each of these batches whose levels
+    went up also holds `itx.cu`'s residuals, the scan's buffer, to the
+    plain route on the card (`_residuals_plain` on the same packed
+    levels, descriptors and scattered `out` offsets), byte-equal on
+    every word the blocks cover.  Returns BIG's times, with
+    "itx_batches" and "itx_max_abs_err" of the residual checks."""
     from av1dec_tpu_torch import api
     from av1dec_tpu_torch.bindings import NativeParser
     from av1dec_tpu_torch.config import DecoderConfig
-    from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
+    from av1dec_tpu_torch.ops.kernels import itx
+    from av1dec_tpu_torch.pipeline.device_recon import (batch_residuals,
+                                                        prep_batch,
                                                         to_torch_inputs)
     from av1dec_tpu_torch.pipeline.wavefront import MF_INTER
+    itx_errs = []
 
-    def inputs_of(drs):
-        return to_torch_inputs(prep_batch(drs), dev)
+    def inputs_of(drs, what):
+        # the residuals computed once, so that each run is the scan's
+        inputs = to_torch_inputs(prep_batch(drs), dev)
+        inputs["res"] = batch_residuals(inputs)
+        if inputs["res_levels"] is not None:
+            plain = itx._residuals_plain(*inputs["res_levels"])
+            rf = inputs["res_levels"][2] // len(drs)
+            cover = torch.cat([torch.arange(f * rf, f * rf + dr._res_px_tot,
+                                            device=dev)
+                               for f, dr in enumerate(drs)])
+            err = int((inputs["res"][cover].long() -
+                       plain[cover].long()).abs().max()) if len(cover) else 0
+            itx_errs.append(err)
+            if err:
+                raise AssertionError(f"itx on {what}'s residuals: the "
+                                     f"kernel != the plain route on the "
+                                     f"card, max abs err {err}")
+        return inputs
 
     def has_inter_lanes(dr):
         return any((bc.packed["mode_family"] == MF_INTER).any()
@@ -858,7 +888,9 @@ def phase_scan(manifest, dev, int_rate):
         for hdr, plans in parser.parse_tu(tu, with_plans=True):
             big.append(api.DeviceRecon(parser.seq, hdr, plans))
     parser.close()
-    big_inputs = inputs_of(big)
+    big_inputs = inputs_of(big, f"{BIG} frames 0-3")
+    if not itx_errs:
+        raise AssertionError(f"{BIG} frames 0-3 took the NumPy residuals")
     launches = check_scan(big_inputs, f"{BIG} frames 0-3")
     n = 1
     seen = set()
@@ -868,8 +900,8 @@ def phase_scan(manifest, dev, int_rate):
         inter = next((dr for dr in drs if has_inter_lanes(dr)), None)
         for batch in ([intra] if intra else []) + \
                 ([[inter]] if inter else []):
-            launches += check_scan(inputs_of(batch), f"{name} frames "
-                                   f"{[drs.index(d) for d in batch]}")
+            what = f"{name} frames {[drs.index(d) for d in batch]}"
+            launches += check_scan(inputs_of(batch, what), what)
             n += 1
             sch = batch[0].sch
             fmt = "mono" if sch.num_planes == 1 else \
@@ -878,7 +910,11 @@ def phase_scan(manifest, dev, int_rate):
             seen.add((sch.bd, fmt, batch[0]._inter_plan is not None))
     inter_dr = next(dr for dr in captured(BIG_INTER, read_tus(BIG_INTER)[:2])
                     if has_inter_lanes(dr))
-    inter_inputs = inputs_of([inter_dr])
+    n_itx = len(itx_errs)
+    inter_inputs = inputs_of([inter_dr], f"{BIG_INTER} frame 1")
+    if len(itx_errs) == n_itx:
+        raise AssertionError(f"{BIG_INTER} frame 1 took the NumPy "
+                             f"residuals")
     launches += check_scan(inter_inputs, f"{BIG_INTER} frame 1")
     n += 1
     bds = {b for b, _, _ in seen}
@@ -894,9 +930,16 @@ def phase_scan(manifest, dev, int_rate):
         f"frame with MF_INTER lanes; {sorted(bds)}-bit, {sorted(fmts)}); "
         f"{launches} launches, one a run, each run's counters reporting "
         f"every level with lanes complete; max abs err 0")
+    log(f"kernel itx: the device path's residuals byte-equal to the plain "
+        f"route on the card on {len(itx_errs)} of these batches (those "
+        f"without a quantizer matrix or lossless block; {BIG} frames 0-3 "
+        f"and {BIG_INTER} frame 1 among them), every word the blocks "
+        f"cover; max abs err {max(itx_errs)}")
     out = time_scan(big_inputs, int_rate, f"{BIG} frames 0-3")
     time_scan(inter_inputs, int_rate, f"{BIG_INTER} frame 1")
     out["max_abs_err"] = 0
+    out["itx_batches"] = len(itx_errs)
+    out["itx_max_abs_err"] = max(itx_errs)
     return out
 
 
@@ -926,8 +969,9 @@ class Launches:
     `device_recon.scan_into`, those with lanes and their levels with
     lanes (from the lanes each is given), keeping each launch's counter
     buffer; the MC passes that go through `device_recon.mc_into` with
-    lanes; the `recon.residuals_device` calls with blocks (a host frame's
-    device buckets); the postfilter calls on a card that go through
+    lanes; the `recon.residuals_packed` calls with blocks (a host frame's
+    device buckets, a device-path batch's residuals); the postfilter
+    calls on a card that go through
     `device_recon.deblock_planes`, `superres_planes` and
     `lr_wiener_planes` (with a Wiener plane); and the calls of the plain
     MC pass, residuals, deblock, superres and Wiener on a card.  On
@@ -943,7 +987,7 @@ class Launches:
     def __init__(self, what):
         self.what = what
         self.levels = self.scans = self.with_lanes = 0
-        self.passes = self.host_frames = self.plain_on_card = 0
+        self.passes = self.residual_calls = self.plain_on_card = 0
         self.deblocks = self.upscales = self.wieners = 0
         self.counters = []
 
@@ -953,7 +997,7 @@ class Launches:
         from av1dec_tpu_torch.pipeline import device_recon, recon
         self.real = {(device_recon, "scan_into"): device_recon.scan_into,
                      (device_recon, "mc_into"): device_recon.mc_into,
-                     (recon, "residuals_device"): recon.residuals_device,
+                     (recon, "residuals_packed"): recon.residuals_packed,
                      (device_recon, "deblock_planes"):
                      device_recon.deblock_planes,
                      (device_recon, "superres_planes"):
@@ -983,9 +1027,9 @@ class Launches:
             self.passes += any(n for _, _, n in args[3][0])
             return real["mc_into"](*args)
 
-        def residuals_device(*args):
-            self.host_frames += sum(len(b[0]) for b in args[0]) > 0
-            return real["residuals_device"](*args)
+        def residuals_packed(*args):
+            self.residual_calls += sum(s[3] for s in args[1]) > 0
+            return real["residuals_packed"](*args)
 
         def deblock_planes(*args):
             self.deblocks += on_card(args[0])
@@ -1006,7 +1050,7 @@ class Launches:
                 return real[name](*args)
             return call
         for (mod, name), fn in zip(self.real, (
-                scan_into, mc_into, residuals_device, deblock_planes,
+                scan_into, mc_into, residuals_packed, deblock_planes,
                 superres_planes, lr_wiener_planes, plain("_mc_plain"),
                 plain("_residuals_plain"), plain("_deblock_plain"),
                 plain("_superres_plain"), plain("_wiener_plain"))):
@@ -1031,12 +1075,13 @@ class Launches:
                     f"lanes of {self.scans}, or levels complete {done} != "
                     f"{self.levels} levels with lanes")
             if mc.launches != self.passes or \
-                    itx.launches != self.host_frames or self.plain_on_card:
+                    itx.launches != self.residual_calls or \
+                    self.plain_on_card:
                 raise AssertionError(
                     f"{self.what}: mc launches {mc.launches} != "
                     f"{self.passes} MC passes with lanes, or itx launches "
-                    f"{itx.launches} != {self.host_frames} host frames "
-                    f"with device buckets, or {self.plain_on_card} plain "
+                    f"{itx.launches} != {self.residual_calls} residual "
+                    f"calls with blocks, or {self.plain_on_card} plain "
                     f"MC, residual, deblock, superres or Wiener calls on "
                     f"the card")
             if deblock.launches != DEBLOCK_PER_FRAME * self.deblocks or \
@@ -1062,7 +1107,7 @@ class Launches:
                 f"lanes of {self.scans}, their counters reporting all "
                 f"{self.levels} levels with lanes complete; mc launches "
                 f"{self.passes} = MC passes with lanes; itx launches "
-                f"{self.host_frames} = host frames with device buckets; "
+                f"{self.residual_calls} = residual calls with blocks; "
                 f"deblock launches {DEBLOCK_PER_FRAME * self.deblocks} = "
                 f"{DEBLOCK_PER_FRAME} x {self.deblocks} device frames with "
                 f"a loop-filter level; superres launches {self.upscales} "
@@ -1537,9 +1582,17 @@ def phase_inter(manifest, dev, int_rate):
     if len(inter) != INTER_FRAMES or len(on_dev) != INTER_FRAMES:
         raise AssertionError(f"{len(on_dev)} of {len(inter)} inter frames "
                              f"on the device path, {INTER_FRAMES} expected")
+    # every device-path frame's residuals from its levels, on the card
+    routes = [s["residual_blocks"] for s in stats
+              if s["recon_path"] == "device"]
+    if any(r["numpy"] or not r["card"] for r in routes):
+        raise AssertionError(f"{BIG_INTER}: residual blocks by route "
+                             f"{routes}, all on the card expected")
     log(f"inter path: {len(got)}/{len(want)} frames of {BIG_INTER} match "
         f"the manifest; {len(on_dev)}/{len(inter)} inter frames on the "
         f"device path (MC pass and scan under sync debug mode 'error'); "
+        f"residual blocks on the card {[r['card'] for r in routes]}, "
+        f"NumPy 0; "
         f"cdef_frame launches {launches} = {n_cdef} frames with CDEF on, "
         f"cdef_filter launches 0; {scans}; first pass {t_first:.3f} s")
     with Launches("checkpoint resume"):
@@ -2680,6 +2733,9 @@ def main():
     launches += n
     n, itx_entry = timed_phase("6", phase_host, manifest, dev, int_rate)
     launches += n
+    # the itx entry's error covers the device path's batches of phase 2
+    itx_entry["max_abs_err"] = max(itx_entry["max_abs_err"],
+                                   scan["itx_max_abs_err"])
     filter_launches = timed_phase("7b-e", phase_scale_out, manifest, dev,
                                   int_rate, frame0)
     launches += timed_phase("8a", phase_compound, manifest, dev, int_rate)

@@ -323,6 +323,8 @@ def test_host_half_equal_on_stream(name, native_lib):
     from av1dec_tpu_torch.ops.spec.deblock import build_deblock_maps as tmaps
     from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon as TDR
     from av1dec_tpu_torch.pipeline.device_recon import prep_batch as tprep
+    from av1dec_tpu_torch.pipeline.device_recon import (batch_residuals,
+                                                        to_torch_inputs)
     jf, tf = parse(name, "jax"), parse(name, "torch")
     assert len(jf) == len(tf) > 0
     for (js, jh, jp), (ts, th, tp) in zip(jf, tf):
@@ -351,8 +353,12 @@ def test_host_half_equal_on_stream(name, native_lib):
             P = tb["pal_np"][t].shape[0]
             np.testing.assert_array_equal(tb["pal_np"][t],
                                           jb["pal_np"][t][:P])
-        res = tb["res_np"]
-        np.testing.assert_array_equal(res, jb["res_np"][:len(res)])
+        # the port's residuals, from its packed levels where the frame
+        # takes the device's route, computed on the CPU
+        res = batch_residuals(to_torch_inputs(tb, "cpu")).numpy()
+        assert (tb["res_np"] is None) == (tb["res_levels"] is not None)
+        rf = td._res_px_tot
+        np.testing.assert_array_equal(res[:rf], jb["res_np"][:rf])
         assert tb["config"] == jb["config"]
 
 

@@ -190,17 +190,30 @@ def test_residuals_packed_plain_route_matches_jax():
 
 
 def test_residuals_kernel_refuses_what_it_does_not_take():
-    """The launch's checks, which run before the kernel is loaded."""
+    """The launch's checks, which run before the kernel is loaded; the
+    packing's check of the residual offsets, which the descriptors carry
+    to the card; and the wrapper's, on every device, of how far the
+    packing says they reach."""
     (buf, spans, words), _ = _packed_subset(8, False, [(0, 0), (3, 9)])
     buf = torch.as_tensor(buf)
     for args, match in (
             ((buf.to(torch.int64), spans, words, 8), "int32"),
             ((buf, spans, words, 9), "bit depth"),
             ((buf, [(3, 1) + spans[1][2:]], words, 8), "does not take"),
-            ((buf, spans, words - 1, 8), "beyond"),
             ((buf[:-1], spans, words, 8), "beyond")):
         with pytest.raises(ValueError, match=match):
             T._residuals_kernel(*args)
+    tsz, out = np.array([0, 3]), np.array([0, 16])
+    src = np.zeros(16 + 32 * 32, np.int32)
+    for o, w in ((out, 16 + 32 * 32 - 1), (out - 1, 16 + 32 * 32)):
+        with pytest.raises(ValueError, match="beyond"):
+            T.pack_blocks(tsz, [0, 9], o, [4, 4], [4, 4], src, [0, 16], w)
+    buf2, spans2, words2 = T.pack_blocks(tsz, [0, 9], out, [4, 4], [4, 4],
+                                         src, [0, 16], 16 + 32 * 32)
+    assert spans2.reach == words2
+    for s, w in ((spans2, words2 - 1), (list(spans2), words2)):
+        with pytest.raises(ValueError, match="pack_blocks"):
+            T.residuals_packed(torch.as_tensor(buf2), s, w, 8)
 
 
 @pytest.mark.gpu

@@ -13,6 +13,9 @@ blocks one after another and its threads as fibers of one OS thread.
   kernel's CTAs (DCT, and the flipped ADST, identity and 1-D types where
   they are valid), so that each span fills two CTAs and part of a
   third, the same against the plain route.
+- With the blocks' residual offsets shuffled (as the device path's
+  slots in the scan's buffer lie), each block's residual at its
+  descriptor's offset, in the kernel and the plain route alike.
 - On extreme levels (|level| up to 2^20), where the plain route wraps
   in int32, the kernel wraps the same way: byte-equal to the plain
   route.
@@ -156,6 +159,35 @@ def test_shim_spans_over_several_ctas(bd, shim, tmp_path):
                                  bd).numpy()
     np.testing.assert_array_equal(got, plain)
     assert np.abs(got).max() > 0
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_shim_scattered_outs(bd, shim, tmp_path):
+    """Blocks whose descriptors send their residuals out of span order
+    (the device path's slots in the scan's buffer): the kernel and the
+    plain route write each at its descriptor's `out`."""
+    rng = np.random.default_rng(70 + bd)
+    buf, spans, words = _packed(_buckets(bd, rng, extreme=False), bd)
+    F = len(itx.DESC_FIELDS)
+    blocks = sum(s[3] for s in spans)
+    desc = buf[:blocks * F].reshape(blocks, F)
+    px = itx.PIXELS[desc[:, 2]]
+    # the blocks laid end to end in a shuffled order
+    order = rng.permutation(blocks)
+    out = np.empty(blocks, np.int64)
+    out[order] = np.cumsum(px[order]) - px[order]
+    moved = buf.copy()
+    moved[:blocks * F].reshape(blocks, F)[:, 1] = out
+    assert (out != desc[:, 1]).sum() > blocks // 2
+    got = _kernel(shim, tmp_path, moved, spans, words, bd)
+    plain = itx._residuals_plain(torch.as_tensor(moved), spans, words,
+                                 bd).numpy()
+    np.testing.assert_array_equal(got, plain)
+    want = _kernel(shim, tmp_path, buf, spans, words, bd)
+    for b in range(blocks):
+        np.testing.assert_array_equal(
+            got[out[b]:out[b] + px[b]],
+            want[desc[b, 1]:desc[b, 1] + px[b]])
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])

@@ -100,13 +100,15 @@ def _scan_reversed(inputs):
         ws[k, bi], wc[k, bi] = lane, 1
     flags = window_flags({t: inputs["packed"][t].numpy() for t in ts}, ws,
                          wc, ts)
+    from av1dec_tpu_torch.pipeline.device_recon import batch_residuals
     frame = _mc_frame(inputs)
-    _scan_plain(frame, inputs["packed"], inputs["res"], inputs["pal"],
+    _scan_plain(frame, inputs["packed"], batch_residuals(inputs),
+                inputs["pal"],
                 inputs["config"], (ws, wc, flags))
     return frame[:-1]
 
 
-def _jax_scan(prep, frame0, has_inter):
+def _jax_scan(prep, frame0, has_inter, res):
     import jax.numpy as jnp
     from av1dec_tpu.ops.kernels.wavefront import run_wavefront
     # the JAX scan slices Bmax rows from each window's start: pad the
@@ -117,7 +119,7 @@ def _jax_scan(prep, frame0, has_inter):
         for t, (p, s, c) in prep["inputs_np"].items()}
     config = tuple(prep["config"]) + ((True,) if has_inter else ())
     return np.asarray(run_wavefront(
-        jnp.asarray(frame0), inputs, jnp.asarray(prep["res_np"]),
+        jnp.asarray(frame0), inputs, jnp.asarray(res),
         {t: jnp.asarray(a) for t, a in prep["pal_np"].items()}, config))
 
 
@@ -125,7 +127,8 @@ def _jax_scan(prep, frame0, has_inter):
                          ids=[c[0] for c in ORDER_CASES])
 def test_level_order_independence(name, k, native_lib):
     from av1dec_tpu_torch.ops.kernels import wavefront as W
-    from av1dec_tpu_torch.pipeline.device_recon import (scan_batch,
+    from av1dec_tpu_torch.pipeline.device_recon import (batch_residuals,
+                                                        scan_batch,
                                                         to_torch_inputs)
     inter = name == "lowdelay"
     prep = _port_inter_prep(name) if inter else _jax_prep(name, k)
@@ -140,7 +143,8 @@ def test_level_order_independence(name, k, native_lib):
     if inter:
         assert frame0.any()
     np.testing.assert_array_equal(got.numpy(),
-                                  _jax_scan(prep, frame0, inter))
+                                  _jax_scan(prep, frame0, inter,
+                                            batch_residuals(inputs).numpy()))
     # reversing reorders real work: some level has several lanes
     assert (inputs["levels"][1] > 1).any()
 
@@ -295,12 +299,13 @@ def test_cuda_constants_locked():
 
 def test_scan_into_devices(native_lib):
     from av1dec_tpu_torch.ops.kernels import wavefront as W
-    from av1dec_tpu_torch.pipeline.device_recon import (prep_batch,
+    from av1dec_tpu_torch.pipeline.device_recon import (batch_residuals,
+                                                        prep_batch,
                                                         to_torch_inputs)
     from av1dec_tpu_torch.pipeline.device_recon import DeviceRecon
     drs = [DeviceRecon(s, h, p) for s, h, p in parse("base", "torch")]
     inputs = to_torch_inputs(prep_batch(drs), "cpu")
-    args = (inputs["packed"], inputs["res"], inputs["pal"],
+    args = (inputs["packed"], batch_residuals(inputs), inputs["pal"],
             inputs["config"], inputs["windows"], inputs["levels"])
     frame = torch.zeros(inputs["n"] + 1, dtype=torch.int32)
     before = W.launches
@@ -352,9 +357,10 @@ def _check_on_card(inputs, runs, what):
     pass, each byte-equal to the plain scan on the card, one launch a
     run whose counters report every level with lanes complete."""
     from av1dec_tpu_torch.ops.kernels import wavefront as W
+    from av1dec_tpu_torch.pipeline.device_recon import batch_residuals
     frame = _mc_frame(inputs)
     plain = frame.clone()
-    args = (inputs["packed"], inputs["res"], inputs["pal"],
+    args = (inputs["packed"], batch_residuals(inputs), inputs["pal"],
             inputs["config"])
     W._scan_plain(plain, *args, inputs["windows"])
     levels = int((inputs["levels"][1] > 0).sum())

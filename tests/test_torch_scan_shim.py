@@ -66,6 +66,7 @@ def _run(exe, d, inputs, entry, resident, tickets=None):
     """The shim's run of `entry` on the batch: (return code, frame,
     counters, stderr)."""
     from av1dec_tpu_torch.ops.kernels import wavefront as W
+    from av1dec_tpu_torch.pipeline.device_recon import batch_residuals
     table, lanes, tickets_np, _ = inputs["levels"]
     if tickets is None:
         tickets = tickets_np
@@ -73,7 +74,7 @@ def _run(exe, d, inputs, entry, resident, tickets=None):
     frame = _mc_frame(inputs)
     counters = torch.zeros((len(live) + 1) * W.COUNTER_STRIDE,
                            dtype=torch.int32)
-    params = W._params(frame, inputs["packed"], inputs["res"],
+    params = W._params(frame, inputs["packed"], batch_residuals(inputs),
                        inputs["pal"], inputs["config"],
                        torch.as_tensor(np.ascontiguousarray(tickets)),
                        counters)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import tus
+from torch_port_helpers import parse, tus
 
 from av1dec_tpu_torch import tracing
 
@@ -60,7 +60,9 @@ def test_decoder_records(native_lib, name, path):
     """Every record of a stream with inter frames on the device path
     (`lowdelay`) and on the host pixel path (`obmc`): its index, its
     spans' self times summing to `ms`, `inter_plan_ms` from its spans,
-    MC lanes counted where an InterPlan ran, no copies on the CPU; and
+    MC lanes counted where an InterPlan ran, no copies on the CPU, a
+    device-path frame's transform blocks with a residual (eob > 0)
+    counted as sent to the device, none on the host path; and
     `collect()`'s records of the decode."""
     t0 = time.perf_counter()
     with tracing.collect() as records:
@@ -68,6 +70,14 @@ def test_decoder_records(native_lib, name, path):
     t1 = time.perf_counter()
     stats = dec.stats
     assert [s["frame"] for s in stats] == list(range(len(stats)))
+    assert tracing.RESIDUALS == ("residuals.card", "residuals.numpy")
+    assert set(tracing.RESIDUALS) <= set(tracing.COUNTERS)
+    coded = [int((p.tx[:, 5] > 0).sum()) for _, _, p in parse(name, "torch")]
+    assert len(coded) == len(stats)
+    for s, n in zip(stats, coded):
+        assert s["residual_blocks"] == (
+            {"card": n, "numpy": 0} if s["recon_path"] == "device" else
+            {"card": 0, "numpy": 0})
     assert any(not s["intra"] and s["recon_path"] == path for s in stats)
     for s in stats:
         spans = s["spans_ms"]

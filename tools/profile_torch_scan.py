@@ -157,6 +157,7 @@ def main():
     from av1dec_tpu_torch.container import read_ivf
     from av1dec_tpu_torch.ops.kernels.wavefront import _scan_plain
     from av1dec_tpu_torch.pipeline.device_recon import (DeviceRecon,
+                                                        batch_residuals,
                                                         postfilter_batch,
                                                         prep_batch,
                                                         scan_batch,
@@ -173,6 +174,8 @@ def main():
     parser.close()
     drs = drs[:args.frames]
     inputs = to_torch_inputs(prep_batch(drs), "cuda")
+    # the residuals once, so that each profile times the scan alone
+    inputs["res"] = batch_residuals(inputs)
     ws, wc, _ = inputs["windows"]
     extra = {"frames": len(drs), "windows": int(ws.shape[0]),
              "window_buckets": int((wc > 0).sum()),
